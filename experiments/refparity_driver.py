@@ -128,11 +128,12 @@ def main():
     ap.add_argument("--approaches", nargs="*", default=None)
     ap.add_argument("--sides", nargs="*", default=["ref", "ours"])
     ap.add_argument("--out", default=OUT)
-    ap.add_argument("--tpu", action="store_true",
-                    help="leave jax on the default backend (ours on TPU)")
+    ap.add_argument("--device", action="store_true",
+                    help="leave jax on its default backend (ours on the "
+                         "accelerator) instead of the CPU")
     args = ap.parse_args()
 
-    if not args.tpu:
+    if not args.device:
         import jax
         jax.config.update("jax_platforms", "cpu")
 

@@ -1,6 +1,6 @@
 """SED2012 dataset ingest (MediaEval Social Event Detection 2012).
 
-Re-implements reference data_loader.py:9-188 with a TPU-serving-minded ingest:
+Re-implements reference data_loader.py:9-188 with a streaming ingest:
 the reference DOM-parses the full ~400MB metadata XML into memory (reference
 data_loader.py:131, its slowest I/O per SURVEY.md §3.1); here we stream with
 ``xml.etree.ElementTree.iterparse`` and clear elements as we go, so peak host

@@ -78,7 +78,7 @@ def _blocked_columns(data_modalities, modality_types, cfg):
 
 def _blocked_reduce(data_modalities, modality_types, cfg, key):
     from mused_tpu.ops import blocked_affinity as ba
-    from mused_tpu.ops.pallas import blocked_select as bsel
+    from mused_tpu.ops import binned_select as bsel
     n = len(data_modalities[0])
     cols, block = _blocked_columns(data_modalities, modality_types, cfg)
     select, nbins = bsel.resolve_select(cfg, cols.n)
@@ -119,7 +119,7 @@ def process_batch_data(results, data_modalities, modality_types, reduced_dim,
         # n^2 float64 (180GB at its own 150k default, SURVEY.md §3.3).
         if approach == "Spectral_batch":
             from mused_tpu.ops.blocked_spectral import spectral_clustering_blocked
-            from mused_tpu.ops.pallas import blocked_select as bsel
+            from mused_tpu.ops import binned_select as bsel
             cols, block = _blocked_columns(data_modalities, modality_types, cfg)
             select, nbins = bsel.resolve_select(cfg, cols.n)
             labels = spectral_clustering_blocked(
@@ -141,10 +141,11 @@ def process_batch_data(results, data_modalities, modality_types, reduced_dim,
                 all_clusters = dbscan_blocked(np.asarray(reduced), eps=eps,
                                               min_samples=min_samples)
             else:
-                # dbscan.hdbscan routes by backend/size: device Boruvka on
-                # TPU (n^2 sweeps ride the MXU), host on-the-fly Prim on
-                # CPU — one O(n^2 d) pass vs Boruvka's O(log n) sweeps
-                # (~10x at the reference's own 150k default on a CPU host)
+                # dbscan.hdbscan routes by platform/size: device Boruvka on
+                # an accelerator (its n^2 sweeps are matmuls), host
+                # on-the-fly Prim on CPU — one O(n^2 d) pass vs Boruvka's
+                # O(log n) sweeps (~10x at the reference's own 150k default
+                # on a CPU host)
                 all_clusters = dbscan.hdbscan(
                     np.asarray(reduced), min_cluster_size=min_cluster_size,
                     min_samples=min_samples)

@@ -2,9 +2,9 @@
 // DBSCAN_incr approach (reference main.py:87-91, which wraps the incdbscan
 // library's IncrementalDBSCAN.insert/get_cluster_labels).
 //
-// TPU-native split (see ops/dbscan.IncrementalDBSCAN): the O(n*N*d) geometry
+// Device/host split (see ops/dbscan.IncrementalDBSCAN): the O(n*N*d) geometry
 // — new-batch x all-points distances and exact eps-neighbor extraction —
-// runs on device as MXU matmuls + top_k; THIS file maintains the
+// runs on device as matmuls + top_k; THIS file maintains the
 // irreducibly-sequential cluster structure over the discovered eps-pairs:
 //
 //   * count[i]  = |N_eps(i)| including self (monotone under insertion)

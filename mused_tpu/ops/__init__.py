@@ -1,1 +1,1 @@
-"""Device algorithm library (JAX/XLA + Pallas)."""
+"""Device algorithm library (JAX/XLA)."""

@@ -5,9 +5,9 @@ one dense n x n 0/1 adjacency per modality, edges i->j for j among i's k
 nearest neighbors under a modality-specific similarity, self-edges skipped,
 invalid rows (NaN coords, zero timestamps, empty strings) excluded entirely.
 
-TPU-native design: instead of sklearn NearestNeighbors / Python O(n^2) loops,
+Device design: instead of sklearn NearestNeighbors / Python O(n^2) loops,
 every modality becomes (masked dense similarity matrix) -> ``lax.top_k`` ->
-scatter, i.e. MXU matmuls + a vectorized select.  Validity is a mask, never a
+scatter, i.e. matmuls + a vectorized select.  Validity is a mask, never a
 dynamic shape.  Per-modality k conventions (SURVEY.md §2.4):
 
   location  k_basis   neighbors (ref :24 uses k_basis+1 incl. self)
@@ -64,7 +64,7 @@ def haversine_block(a: jax.Array, b: jax.Array) -> jax.Array:
     (n, 2) [lat, lon] degree arrays.
 
     Vectorized form of the reference's per-pair callable metric (reference
-    matrix_operations.py:250-263) — one fused VPU expression instead of m*n
+    matrix_operations.py:250-263) — one fused elementwise expression instead of m*n
     Python calls.  Shared by the square, sharded, and blocked paths.
     """
     ra, rb = jnp.deg2rad(a), jnp.deg2rad(b)
@@ -114,7 +114,7 @@ def username_adjacency(user_ids: jax.Array) -> jax.Array:
 def jaccard_matrix(multihot: jax.Array) -> jax.Array:
     """Pairwise Jaccard over (n, H) 0/1 multi-hot tag incidence.
 
-    intersection = M M^T (one MXU matmul); union = |i| + |j| - intersection.
+    intersection = M M^T (one matmul); union = |i| + |j| - intersection.
     Replaces the reference's O(n^2) Python set loop (ref :84-89).
     """
     m = multihot.astype(jnp.float32)
@@ -152,7 +152,7 @@ def tfidf_cosine_matrix(counts: jax.Array) -> jax.Array:
 
     tf = raw count; idf = ln((1+n)/(1+df)) + 1 (smooth_idf, like the
     reference's TfidfVectorizer at ref :104-106); rows L2-normalized; cosine =
-    one MXU matmul.  n counts only valid (nonzero) documents, matching the
+    one matmul.  n counts only valid (nonzero) documents, matching the
     reference fitting the vectorizer on valid rows only.
     """
     counts = counts.astype(jnp.float32)
@@ -211,11 +211,11 @@ def knn_adjacency_block(sim: jax.Array, row_valid: jax.Array,
     exclusion).  The building block of both the sharded multi-chip affinity
     (parallel/sharded.py) and the rematerialized blocked batch engine.
 
-    ``approx=True`` selects ``lax.approx_max_k`` (TPU-optimized partial
-    reduction; measured 2x exact ``top_k`` at n~100k with ~98.5% recall at
-    the 0.95 target) — the huge-window regime's default, where exact TopK is
-    the per-block wall and a ~1.5% edge perturbation is far below the
-    OR-fusion/sketch noise floor.  Exact on CPU (the fallback lowering).
+    ``approx=True`` selects ``lax.approx_max_k`` (a partial reduction with
+    ~98.5% recall at the 0.95 target) — the huge-window regime's default,
+    where exact TopK over n~100k columns is the per-block wall and a ~1.5%
+    edge perturbation is far below the OR-fusion/sketch noise floor.  Exact
+    on CPU (the fallback lowering).
     """
     m, n = sim.shape
     k = max(0, min(k, n - 1))
@@ -290,7 +290,7 @@ def multimodal_fused_adjacency(location: jax.Array, times: jax.Array,
     """All five modality graphs + OR-fusion in one jitted graph.
 
     XLA fuses the masking/scatter chains; the five similarity matrices are
-    independent so the compiler is free to overlap their MXU work.
+    independent so the compiler is free to overlap their matmul work.
     """
     mats = [
         location_adjacency(location, k_basis),

@@ -4,8 +4,8 @@ fly, never materializing the full (n, n) matrix.
 The reference's batch engine allocates a dense subset^2 float64 matrix
 (reference matrix_operations.py:17 via main.py:139-141) — 180GB at its own
 default subset of 150k rows, i.e. its default batch config cannot actually
-run.  The TPU-native answer is rematerialization: any (B, n) row block of the
-fused adjacency is a cheap function of the feature tensors (MXU sims +
+run.  The answer here is rematerialization: any (B, n) row block of the
+fused adjacency is a cheap function of the feature tensors (matmul sims +
 top_k), so consumers that only need matrix-vector products (randomized SVD,
 spectral power iteration) recompute blocks inside a `lax.scan` instead of
 storing the matrix — the same FLOPs-for-memory trade as activation remat in
@@ -24,6 +24,9 @@ import jax
 import jax.numpy as jnp
 
 from mused_tpu.ops import affinity
+from mused_tpu.ops import binned_select as bs
+from mused_tpu.ops import cand_matvec as cm
+from mused_tpu.utils.runtime import platform_paths
 
 
 class Columns(NamedTuple):
@@ -74,12 +77,12 @@ def standard_columns(wf, features_cfg=None) -> Columns:
     # idf-scale + L2-normalize ONCE here: inside the blocked sweeps this
     # preprocessing sat in the per-block loop body, recomputing an
     # O(n * H_text) elementwise pass for every row block (48x at 100k
-    # windows — it was the biggest share of the 93 ms/block text cost)
+    # windows)
     text = text * idf[None, :]
     text = text / jnp.maximum(jnp.linalg.norm(text, axis=1, keepdims=True),
                               1e-12)
     # "text_bf16": ONE bf16 tensor of the pre-scaled, pre-normalized rows.
-    # The MXU multiplies bf16 operands exactly and accumulates in f32, so
+    # The tensor cores multiply bf16 operands exactly and accumulate in f32, so
     # the only deviation from the f32 dot is the INPUT rounding (~4e-3
     # relative on unit vectors) — and adding the first-order split
     # correction (bf16 [hi, lo] with lo = x − hi; hi@hi + hi@lo + lo@hi
@@ -87,8 +90,8 @@ def standard_columns(wf, features_cfg=None) -> Columns:
     # on two 8k-row probe streams (the sparse synthetic events stream and
     # a rich 15-60-token Zipf-text stream: the 1/2/3-term edge sets are
     # bit-identical; all residual disagreement vs the f32 oracle is the
-    # shared input rounding).  One dot is 32.6 vs the 3-term's 57.4 ms per
-    # (2048, 98k) block, and the column store is half the HBM bytes.  The
+    # shared input rounding).  One dot is a third of the 3-term's FLOPs,
+    # and the column store is half the HBM bytes.  The
     # "text_split" kind stays supported for callers wanting the ~f24
     # product on data where input rounding itself matters.
     text_bf16 = text.astype(jnp.bfloat16)
@@ -99,16 +102,16 @@ def standard_columns(wf, features_cfg=None) -> Columns:
     # tags ride with their hoisted row sums: the Jaccard union needs the
     # per-row token totals, and computing the column-side sum inside the
     # block sweep re-reduced the whole (n, H_tags) tensor once per block
-    # (XLA does not LICM-hoist the reduction out of the scan; measured
-    # 28.5 -> 19.7 ms/block with the sum precomputed).  A tuple leaf flows
+    # (XLA does not LICM-hoist the reduction out of the scan).  A tuple
+    # leaf flows
     # through every jit/shard_map boundary as an ordinary pytree.
-    # tags store int8 (round 4; was bf16): the multi-hot counts are small
-    # ints <= the token cap (24 < 127), so int8 is exact like bf16 was —
-    # and the Jaccard intersection becomes an int8 MXU dot at 2x the bf16
-    # rate (probe: 7.25 -> 5.62 ms/block at the BASELINE #3 shape) with the
-    # (n, H_tags) column panel at half the bf16 bytes besides.  inter is
-    # the same integer either way, so sims are BIT-IDENTICAL across the
-    # kernel, the strip path, and the CPU emulation.  The Jaccard sums are
+    # tags store int8: the multi-hot counts are small ints <= the token
+    # cap (24 < 127), so int8 is exact like bf16 — and the Jaccard
+    # intersection becomes an int8 dot (int32 accumulate, twice the bf16
+    # tensor-core rate) with the (n, H_tags) column panel at half the bf16
+    # bytes besides.  inter is the same integer either way, so sims are
+    # BIT-IDENTICAL across the strip and binned paths and every backend.
+    # The Jaccard sums are
     # computed in f32 FIRST (sums up to H exceed int8's range).
     return Columns(
         kinds=("location_xyz", "time", "username", "tags", "text_bf16"),
@@ -150,16 +153,14 @@ def split_bf16(x: jax.Array) -> jax.Array:
     flip ZERO top-50 kNN edges on realistic streams.  What the packing
     DOES deliver (and why it stays): the value is BACKEND-INDEPENDENT —
     XLA:CPU upcasts the same bf16 halves and sums the same two products,
-    so the strip path, the stride-binned kernel, and its CPU emulation
-    all rank by the SAME sims, with no TPU-only truncation cliff (the
-    DEFAULT dot on raw f32 operands truncates differently per backend and
-    was measured flipping ~24% of kNN edges between modes).  Documented
-    lever: a SINGLE bf16 tensor achieves the identical accuracy class and
-    backend independence at half this width — adopting it needs a TPU
-    revalidation pass of the fold/selection parity suite."""
+    so the strip and stride-binned paths rank by the SAME sims on every
+    backend (the DEFAULT dot on raw f32 operands rounds differently per
+    backend and was measured flipping ~24% of kNN edges between modes).
+    A SINGLE bf16 tensor (``bf16_pack``) achieves the identical accuracy
+    class and backend independence at half this width; this layout stays
+    for hand-built Columns."""
     hi = x.astype(jnp.bfloat16)
     lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    from mused_tpu.ops.pallas import blocked_select as bs
     return bs.pad_features_128(jnp.concatenate([hi, lo], axis=1))
 
 
@@ -168,11 +169,10 @@ def bf16_pack(x: jax.Array) -> jax.Array:
     multiple — the packing generic_columns adopted in round 5 (the lever
     split_bf16's docstring documents): the positional packed dot of two
     split tensors is hi@hi' + lo@lo', whose accuracy ALREADY equals this
-    plain bf16-input dot, so the split spent 2x the width (and 2x the MXU
+    plain bf16-input dot, so the split spent 2x the width (and 2x the dot
     cost + panel bytes) buying nothing.  Backend independence is identical:
-    every backend upcasts the same bf16 values, so strip path, stride-binned
-    kernel, and CPU emulation still rank by the SAME sims."""
-    from mused_tpu.ops.pallas import blocked_select as bs
+    every backend upcasts the same bf16 values, so the strip and binned
+    paths still rank by the SAME sims."""
     return bs.pad_features_128(x.astype(jnp.bfloat16))
 
 
@@ -184,12 +184,12 @@ def generic_columns(mats, types) -> Columns:
     extra full-panel elementwise pass per block, and the sweep is
     HBM-bandwidth-bound (same rationale as the hoisted text idf/normalize
     and tags row sums: the O(n·d) pass is FLOP-trivial but its read+write
-    traffic rivals the column-panel read the MXU actually needs).  Both
+    traffic rivals the column-panel read the matmul actually needs).  Both
     kinds store a SINGLE bf16 tensor (``bf16_pack``, round 5 — was the
     2x-width split_bf16 packing, whose positional dot has the same
     accuracy class; see split_bf16's correction note): identical kNN
-    ranking across the strip path, the stride-binned kernel, and the CPU
-    emulation, at HALF the split packing's dot cost and panel bytes."""
+    ranking across the strip and binned paths, at HALF the split
+    packing's dot cost and panel bytes."""
     tensors, valids, kinds = [], [], []
     for m, t in zip(mats, types):
         m = jnp.asarray(np.asarray(m, np.float32))
@@ -238,7 +238,7 @@ def _rows(t, start, size):
 
 def _count_dot(a, b):
     """f32 intersection counts a @ b.T for exact small-int count tensors —
-    int8 operands take the 2x-rate int8 MXU path (exact int32 accumulate),
+    int8 operands take the int8 tensor-core path (exact int32 accumulate),
     everything else the bf16/f32 DEFAULT path; the result is the same
     integer either way (counts and their products are exact in both)."""
     if a.dtype == jnp.int8:
@@ -248,82 +248,37 @@ def _count_dot(a, b):
 
 
 def _modality_candidates(t, tr, valid, vr, k, metric, *, start, block: int,
-                         n: int, nbins: int, tn: int, use_kernel: bool,
-                         row_sums=None, sim_fn=None):
-    """(keep, grp) stride-binned candidates for one modality's row block —
-    kernel on TPU, bit-equal XLA emulation elsewhere (the CPU path and the
-    test oracle).  ``sim_fn`` builds the emulation's (block, n) sim strip
-    for the non-dot metrics (chord3/l1).  Returns None at k == 0 (the
-    modality contributes no edges)."""
-    from mused_tpu.ops.pallas import blocked_select as bs
+                         n: int, nbins: int, row_sums=None, sim_fn=None):
+    """(keep, grp) stride-binned candidates for one modality's row block.
+    ``sim_fn`` builds the (block, n) sim strip for the non-dot metrics
+    (chord3/l1).  Returns None at k == 0 (the modality contributes no
+    edges)."""
     k = max(0, min(k, n - 1))
     if k == 0:
         return None
-    if use_kernel:
-        vals, grp = bs.binned_candidates_pallas(
-            t, tr, valid, start, metric=metric, nbins=nbins,
-            block=block, row_sums=row_sums, tn=tn)
+    if sim_fn is not None:
+        sim = sim_fn()
+    elif metric == "jaccard":
+        inter = _count_dot(tr, t)
+        s_r = (_rows(row_sums, start, block)[:, None]
+               .astype(jnp.float32))
+        sim = inter / jnp.maximum(
+            s_r + row_sums[None, :].astype(jnp.float32) - inter, 1e-9)
+    elif metric == "chord":
+        sq_r = _rows(row_sums, start, block)
+        sim = -jnp.maximum(
+            sq_r[:, None] + row_sums[None, :]
+            - 2.0 * jnp.dot(tr, t.T, preferred_element_type=jnp.float32),
+            0.0)
     else:
-        if sim_fn is not None:
-            sim = sim_fn()
-        elif metric == "jaccard":
-            inter = _count_dot(tr, t)
-            s_r = (_rows(row_sums, start, block)[:, None]
-                   .astype(jnp.float32))
-            sim = inter / jnp.maximum(
-                s_r + row_sums[None, :].astype(jnp.float32) - inter,
-                1e-9)
-        elif metric == "chord":
-            sq_r = _rows(row_sums, start, block)
-            sim = -jnp.maximum(
-                sq_r[:, None] + row_sums[None, :]
-                - 2.0 * jnp.dot(tr, t.T,
-                                preferred_element_type=jnp.float32),
-                0.0)
-        else:
-            sim = jnp.dot(tr, t.T, preferred_element_type=jnp.float32)
-        vals, grp = bs.binned_candidates_reference(sim, valid, start, nbins)
-    return bs.budgeted_keep(vals, vr, k), grp
-
-
-def _pair_loc_time(cols: Columns, start, block: int, n: int, nbins: int,
-                   tn: int, use_kernel: bool, k_basis: int) -> dict:
-    """Precomputed {kind: (vals, grp)} for the location_xyz + time pair via
-    ONE kernel launch (blocked_select.binned_candidates_pair_pallas) — the
-    two cheap VPU metrics each pay a near-constant per-sweep cost, so
-    pairing lands at ~max of the singles (9.07 -> 6.51 ms/block probe).
-    Kernel path only ({} elsewhere — the XLA emulation runs per-modality
-    and is the bit-parity oracle for the pair's outputs too)."""
-    from mused_tpu.ops.pallas import blocked_select as bs
-    if (not use_kernel or "location_xyz" not in cols.kinds
-            or "time" not in cols.kinds):
-        return {}
-    if min(k_basis, n - 1) <= 0 or min(3 * k_basis, n - 1) <= 0:
-        return {}
-    iL = cols.kinds.index("location_xyz")
-    iT = cols.kinds.index("time")
-    tL, vL = cols.tensors[iL], cols.valids[iL]
-    tT, vT = cols.tensors[iT], cols.valids[iT]
-    vaL, grL, vaT, grT = bs.binned_candidates_pair_pallas(
-        tL, tT, _rows(tL, start, block), _rows(tT, start, block), vL, vT,
-        start, metricA="chord3", metricB="l1", nbins=nbins, block=block,
-        tn=tn)
-    return {"location_xyz": (vaL, grL), "time": (vaT, grT)}
-
-
-def _pair_keep(kind: str, pair: dict, vr, k_basis: int, n: int):
-    """(keep, grp) from the precomputed pair results, with the same k
-    clamp budgeted_keep semantics as _modality_candidates."""
-    from mused_tpu.ops.pallas import blocked_select as bs
-    vals, grp = pair[kind]
-    k = k_basis if kind == "location_xyz" else 3 * k_basis
-    k = max(0, min(k, n - 1))
+        sim = jnp.dot(tr, t.T, preferred_element_type=jnp.float32)
+    vals, grp = bs.binned_candidates_reference(sim, valid, start, nbins)
     return bs.budgeted_keep(vals, vr, k), grp
 
 
 def _kind_cand_spec(kind: str, t, valid, k_basis: int, start, block: int,
                     n: int, extra=None):
-    """Per-modality candidate-kernel route: (t, tr, k, metric, row_sums,
+    """Per-modality binned-candidate route: (t, tr, k, metric, row_sums,
     sim_fn) kwargs for :func:`_modality_candidates`, or None when ``kind``
     has no binned route (caller falls back to the dense strip).  ``extra``
     is the kind's hoisted row statistic (tags row sums / default_safe
@@ -373,34 +328,21 @@ def fused_rowblock(cols: Columns, start, block: int,
     ``approx`` selects approx_max_k for the kNN selections (see
     affinity.knn_adjacency_block).
 
-    ``select="binned"`` (with ``nbins`` from blocked_select.default_nbins)
-    routes the MXU modalities (text/tags) through the fused stride-binned
-    candidate kernel (ops/pallas/blocked_select.py): the (block, n) f32 sim
-    strip never reaches HBM — only (block, nbins) candidates do — and the
-    per-modality kNN becomes exact lax.top_k over the candidates plus ONE
-    scatter of the union'd column ids (replacing per-modality bool strips).
-    On non-TPU backends the bit-identical XLA emulation runs instead (the
-    test oracle).  Modalities the kernel doesn't cover keep the strip path
-    and OR in densely.
+    ``select="binned"`` (with ``nbins`` from binned_select.default_nbins)
+    routes every modality with a binned route (_kind_cand_spec) through
+    stride-binned candidate selection (ops/binned_select.py): per-modality
+    kNN becomes exact top-k over (block, nbins) candidates, and the union
+    is one scatter-free broadcast.  Modalities without a binned route keep
+    the strip path and OR in densely.
 
     Per-modality adjacencies are built as BOOL and OR-fused bitwise, with a
     single cast to f32 at the end: the sweep is HBM-bandwidth-bound and the
     five f32 (block, n) adjacency temporaries were ~1/3 of its traffic."""
-    from mused_tpu.ops.pallas import blocked_select as bs
     knn_b = functools.partial(affinity.knn_adjacency_block,
                               out_dtype=jnp.bool_)
     n = cols.n
     binned = select == "binned" and nbins > 0 and n % nbins == 0
-    use_kernel = binned and jax.default_backend() == "tpu"
-    tn = bs.pick_tn(n, nbins) if binned else 0
 
-    def _binned_cands(spec, vr, valid):
-        return _modality_candidates(valid=valid, vr=vr, start=start,
-                                    block=block, n=n, nbins=nbins, tn=tn,
-                                    use_kernel=use_kernel, **spec)
-
-    pair = (_pair_loc_time(cols, start, block, n, nbins, tn, use_kernel,
-                           k_basis) if binned else {})
     cand_cols = []
     mats = []
     for kind, t, valid in zip(cols.kinds, cols.tensors, cols.valids):
@@ -412,14 +354,13 @@ def fused_rowblock(cols: Columns, start, block: int,
         tr = _rows(t, start, block)
         vr = _rows(valid, start, block)
         if binned and kind != "username":
-            if kind in pair:
-                cand_cols.append(_pair_keep(kind, pair, vr, k_basis, n))
-                continue
             extra = tags_sum if tags_sum is not None else def_sq
             spec = _kind_cand_spec(kind, t, valid, k_basis, start, block, n,
                                    extra)
             if spec is not None:
-                cand_cols.append(_binned_cands(spec, vr, valid))
+                cand_cols.append(_modality_candidates(
+                    valid=valid, vr=vr, start=start, block=block, n=n,
+                    nbins=nbins, **spec))
                 continue
         if kind in ("location", "location_xyz"):
             # chord-distance ranking on 3D unit vectors: |a-b| is monotone
@@ -431,7 +372,7 @@ def fused_rowblock(cols: Columns, start, block: int,
             # at 1 - theta^2/2, where f32 cannot separate nearby points).
             # "location_xyz" tensors are pre-converted in the column
             # builders (once per window, not once per block); raw-latlon
-            # "location" Columns convert here.  Measured: 27 -> ~15 ms/block.
+            # "location" Columns convert here.
             if kind == "location":
                 xc = _unit_xyz(t, valid)
                 xr = _rows(xc, start, block)
@@ -453,7 +394,7 @@ def fused_rowblock(cols: Columns, start, block: int,
         elif kind == "tags":
             sums = (jnp.sum(t.astype(jnp.float32), axis=1)
                     if tags_sum is None else tags_sum)
-            # exact count dot (int8 MXU path when the columns store int8;
+            # exact count dot (int8 path when the columns store int8;
             # bf16/f32 DEFAULT otherwise — same integers either way); this
             # dot is the (block, n) sweep's biggest FLOP bucket at 100k
             # windows
@@ -463,16 +404,15 @@ def fused_rowblock(cols: Columns, start, block: int,
             # one fused elementwise pass: inter <= min(s_r, s_c) exactly
             # (counts and their sums are exact), so the union is >= 0 and
             # == 0 only where inter == 0, where the clamped quotient is 0 —
-            # identical to the old where(union > 0, ...) but without the
-            # extra (block, n) temporary round trip (28.5 -> 19.7 ms/block
-            # together with the hoisted sums)
+            # identical to where(union > 0, ...) but without the extra
+            # (block, n) temporary round trip
             sim = inter / jnp.maximum(s_r[:, None] + sums[None, :] - inter,
                                       1e-9)
             mats.append(knn_b(sim, vr, valid, k_basis, start, approx))
         elif kind == "text_bf16":
             # pre-scaled/normalized bf16 columns (see standard_columns):
-            # one DEFAULT-precision dot — bf16 operands multiply exactly on
-            # the MXU with f32 accumulation; measured rank-identical to the
+            # one DEFAULT-precision dot — bf16 operands multiply exactly
+            # with f32 accumulation; measured rank-identical to the
             # split-term product on both probe streams
             sim = jnp.dot(tr, t.T, preferred_element_type=jnp.float32)
             mats.append(knn_b(sim, vr, valid, k_basis, start, approx))
@@ -500,7 +440,7 @@ def fused_rowblock(cols: Columns, start, block: int,
                 x_c = x_c / jnp.maximum(
                     jnp.linalg.norm(x_c, axis=1, keepdims=True), 1e-12)
             x_r = _rows(x_c, start, block)
-            # Precision.HIGH (TPU: 3-pass bf16): measured on a real 32k
+            # Precision.HIGH (3-pass bf16 products): measured on a real 32k
             # window, DEFAULT single-pass bf16 perturbs idf-scaled sims by
             # up to 5e-3, flipping ~24% of text kNN edges as genuine rank
             # inversions (not tie churn) — HIGH restores ~f32 ranking at a
@@ -514,7 +454,7 @@ def fused_rowblock(cols: Columns, start, block: int,
             # bf16_pack; "embedding_split" is the legacy 2x-width [hi|lo]
             # layout for hand-built Columns — its positional dot has the
             # SAME bf16-input accuracy class, see split_bf16): one DEFAULT
-            # dot, identical ranking on strip/kernel/emulation
+            # dot, identical ranking on the strip and binned paths
             sim = jnp.dot(tr, t.T, preferred_element_type=jnp.float32)
             mats.append(knn_b(sim, vr, valid, k_basis, start, approx))
         elif kind == "embedding_unit":
@@ -532,10 +472,10 @@ def fused_rowblock(cols: Columns, start, block: int,
             mats.append(knn_b(sim, vr, valid, k_basis, start, approx))
         elif kind == "default_safe":
             # masked bf16-packed rows + hoisted squared norms (see
-            # generic_columns); negative squared euclidean == the kernel's
+            # generic_columns); negative squared euclidean == the binned
             # "chord" metric, self included in k (ref :112-119).  The
-            # bf16-operand dot keeps d2 IDENTICAL across strip/kernel/
-            # emulation, and the hoisted norms are the dot's exact
+            # bf16-operand dot keeps d2 IDENTICAL across the strip and
+            # binned paths, and the hoisted norms are the dot's exact
             # self-product, so self-distance is 0 and d2 >= 0
             kk = max(1, k_basis) - 1
             d2 = (_rows(def_sq, start, block)[:, None] + def_sq[None, :]
@@ -584,7 +524,7 @@ def fused_rowblock(cols: Columns, start, block: int,
 def cand_fold_supported(kinds, tensors, nbins: int, n: int) -> bool:
     """True when EVERY modality of the window either has a stride-binned
     candidate route (_kind_cand_spec) or is the username equality modality
-    (evaluated inside the matvec kernels) — the precondition for the
+    (evaluated inside the candidate products) — the precondition for the
     candidate-native FD fold, which has no dense strip to OR into."""
     if nbins <= 0 or n % nbins or (n // nbins) > 127:
         return False
@@ -604,16 +544,13 @@ def cand_fold_supported(kinds, tensors, nbins: int, n: int) -> bool:
 
 
 def candidate_rowblock(cols: Columns, start, block: int, k_basis: int,
-                       nbins: int, tn: int, use_kernel: bool):
+                       nbins: int):
     """Candidate-form fused adjacency rows [start, start+block): the same
-    edges as ``fused_rowblock(select="binned")`` — same candidate kernels,
-    same budgeted_keep, username via uid equality — packed as int8 slabs
-    (ops/pallas/cand_matvec.CandBlock) instead of a dense (block, n) block.
+    edges as ``fused_rowblock(select="binned")`` — same candidates, same
+    budgeted_keep, username via uid equality — packed as int8 slabs
+    (ops/cand_matvec.CandBlock) instead of a dense (block, n) block.
     Callers must have checked :func:`cand_fold_supported`."""
-    from mused_tpu.ops.pallas import cand_matvec as cm
     n = cols.n
-    pair = _pair_loc_time(cols, start, block, n, nbins, tn, use_kernel,
-                          k_basis)
     slabs, uid_rows, uid_cols = [], None, None
     for kind, t, valid in zip(cols.kinds, cols.tensors, cols.valids):
         extra = None
@@ -622,18 +559,12 @@ def candidate_rowblock(cols: Columns, start, block: int, k_basis: int,
         if kind == "username":
             uid_rows, uid_cols = cm.mask_uids(t, valid, nbins, start, block)
             continue
-        if kind in pair:
-            keep, grp = _pair_keep(kind, pair,
-                                   _rows(valid, start, block), k_basis, n)
-            slabs.append(cm.pack_slab(keep, grp))
-            continue
         spec = _kind_cand_spec(kind, t, valid, k_basis, start, block, n,
                                extra)
         assert spec is not None, f"kind {kind!r} has no candidate route"
         res = _modality_candidates(
             valid=valid, vr=_rows(valid, start, block), start=start,
-            block=block, n=n, nbins=nbins, tn=tn, use_kernel=use_kernel,
-            **spec)
+            block=block, n=n, nbins=nbins, **spec)
         if res is None:          # k == 0 — modality contributes no edges
             continue
         keep, grp = res
@@ -648,14 +579,13 @@ def candidate_rowblock(cols: Columns, start, block: int, k_basis: int,
 
 @functools.partial(jax.jit,
                    static_argnames=("kinds", "ell", "block", "k_basis",
-                                    "nbins", "tn", "use_kernel"))
+                                    "nbins"))
 def _blocked_fd_cands_impl(tensors, valids, idf, *, kinds, ell: int,
-                           block: int, k_basis: int, nbins: int, tn: int,
-                           use_kernel: bool):
+                           block: int, k_basis: int, nbins: int):
     """Candidate-native huge-window FD fold: each scan step builds the
-    block's candidates and absorbs them via fd.shrink_rr_cands — the fold's
-    G-applications run straight off the int8 slabs (ops/pallas/cand_matvec),
-    so the (block, n) dense adjacency block never exists in HBM."""
+    block's candidates and absorbs them via fd.shrink_rr_cands, whose
+    products rebuild the adjacency one column group at a time from the
+    int8 slabs (ops/cand_matvec)."""
     from mused_tpu.ops import fd
     cols = Columns(kinds=kinds, tensors=tensors, valids=valids, idf=idf)
     n = cols.n
@@ -663,10 +593,8 @@ def _blocked_fd_cands_impl(tensors, valids, idf, *, kinds, ell: int,
 
     def body(st, i):
         start = i * block
-        cand = candidate_rowblock(cols, start, block, k_basis, nbins, tn,
-                                  use_kernel)
-        b, delta, edges = fd.shrink_rr_cands(st.sketch, cand, ell,
-                                             use_kernel=use_kernel)
+        cand = candidate_rowblock(cols, start, block, k_basis, nbins)
+        b, delta, edges = fd.shrink_rr_cands(st.sketch, cand, ell)
         return fd.FDState(
             sketch=b,
             sq_frobenius=st.sq_frobenius + edges,
@@ -714,9 +642,9 @@ def hoist_columns(cols: Columns) -> Columns:
     sweeps assume (review r5): a raw 'location' latlon panel converts to
     unit xyz ONCE (O(n) trig — left inside the scan it re-ran per row
     block), and untupled 'tags' gain their hoisted row sums (the per-block
-    full-panel re-reduction the tuple exists to avoid; measured
-    28.5 -> 19.7 ms/block).  standard_columns / generic_columns already
-    emit hoisted kinds, so this is a no-op pass-through for them."""
+    full-panel re-reduction the tuple exists to avoid).  standard_columns /
+    generic_columns already emit hoisted kinds, so this is a no-op
+    pass-through for them."""
     kinds = list(cols.kinds)
     tensors = list(cols.tensors)
     changed = False
@@ -767,35 +695,32 @@ def blocked_fd_sketch(cols: Columns, *, ell: int, block: int,
 
     ``mode`` selects the shrink (ops/fd.py): "subspace" (default) routes to
     the Rayleigh-Ritz shrink (fd.shrink_rr) — at fold scale (d = n ~ 100k)
-    the Gram matmul dominates and the Newton-Schulz chain both adds ~40ms of
-    sequential tiny-matmul latency per absorb AND fails its health gate on
+    the Gram matmul dominates and the Newton-Schulz chain both adds a long
+    chain of sequential tiny matmuls per absorb AND fails its health gate on
     real adjacency stacks (orth_err 0.5-1.0 measured), so rr IS the subspace
     shrink tuned for huge d.  "eigh" keeps classic FD; "rr"/"subspace_ns"
     select explicitly.
 
     ``cand_fold``: absorb CANDIDATE-form blocks (fd.shrink_rr_cands +
-    ops/pallas/cand_matvec) — the fold's G-applications run off the int8
-    candidate slabs and the dense (block, n) adjacency block never reaches
-    HBM.  Requires the rr shrink, binned selection, and every modality
-    binned-eligible (cand_fold_supported).  None = auto: ON on TPU when
-    eligible, OFF elsewhere (the XLA emulation saves nothing on CPU);
-    explicit True forces the per-group XLA reference products on CPU (the
-    test oracle).  Edges are identical to the dense binned path by
-    construction (same candidate kernels + budgeted_keep); products differ
-    only in f32 summation order and bf16 operand rounding of the
-    probe/bound vectors (docs/DESIGN.md §8.4).
+    ops/cand_matvec) — the fold's products rebuild the adjacency one
+    column group at a time from the int8 candidate slabs.  Requires the rr
+    shrink, binned selection, and every modality binned-eligible
+    (cand_fold_supported).  None = the platform's default when eligible
+    (utils.runtime.platform_paths).  Edges are identical to the dense
+    binned path by construction (same candidates + budgeted_keep);
+    products differ only in f32 summation order and bf16 operand rounding
+    of the probe/bound vectors (docs/DESIGN.md §8.4).
 
     Returns (sketch, sq_frobenius, shrink_loss) — feed to swfd.absorb_summary
     exactly like fd.fold_sketch's output.
     """
     from mused_tpu.ops import fd
-    from mused_tpu.ops.pallas import blocked_select as bs
     mode = fd.resolve_fold_mode(mode)
     eligible = (mode == "rr" and select == "binned" and cols.n % block == 0
                 and cand_fold_supported(cols.kinds, cols.tensors, nbins,
                                         cols.n))
     if cand_fold is None:
-        cand_fold = eligible and jax.default_backend() == "tpu"
+        cand_fold = eligible and platform_paths().cand_fold
     elif cand_fold and not eligible:
         raise ValueError(
             "cand_fold=True needs the rr shrink, select='binned', "
@@ -804,9 +729,7 @@ def blocked_fd_sketch(cols: Columns, *, ell: int, block: int,
     if cand_fold:
         return _blocked_fd_cands_impl(
             cols.tensors, cols.valids, cols.idf, kinds=cols.kinds, ell=ell,
-            block=block, k_basis=k_basis, nbins=nbins,
-            tn=bs.pick_tn(cols.n, nbins),
-            use_kernel=jax.default_backend() == "tpu")
+            block=block, k_basis=k_basis, nbins=nbins)
     return _blocked_fd_impl(cols.tensors, cols.valids, cols.idf,
                             kinds=cols.kinds, ell=ell, block=block,
                             k_basis=k_basis, mode=mode,

@@ -102,11 +102,10 @@ def spectral_embedding_blocked(cols: ba.Columns, key: jax.Array, *,
     so the engine can estimate the cluster count from the spectrum before
     committing to labels (k_estimate="eigengap").
 
-    ``select``/``nbins`` route the sweeps' kNN through the fused
-    stride-binned candidate kernel exactly as blocked_fd_sketch /
-    blocked_svd_reduce do — the engine resolves them once per window, so a
-    1-chip sSpectral run builds the SAME adjacency as the sharded layouts
-    (and skips the (block, n) HBM sim strip on TPU)."""
+    ``select``/``nbins`` route the sweeps' kNN through stride-binned
+    candidate selection exactly as blocked_fd_sketch / blocked_svd_reduce
+    do — the engine resolves them once per window, so a 1-chip sSpectral
+    run builds the SAME adjacency as the sharded layouts."""
     n = cols.n
     assert n % block == 0, "pad rows to a block multiple upstream"
     kinds = cols.kinds

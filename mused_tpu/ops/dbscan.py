@@ -4,7 +4,7 @@ Replaces the reference's sklearn DBSCAN, hdbscan.HDBSCAN, incdbscan
 IncrementalDBSCAN, and the centroid-matched incremental DBSCAN (reference
 matrix_operations.py:235-243, 265-298; main.py:87-91).
 
-TPU-native split:
+Device/host split:
   * all O(n^2) geometry (distance matrices, eps-graphs, core-point degrees,
     mutual-reachability) runs on device as masked matmuls;
   * DBSCAN's connected components run on device as a min-label propagation
@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from .kmeans import _sq_dists
+from mused_tpu.utils.runtime import platform_paths
 
 
 def _first_occurrence_compaction(roots: jax.Array, is_clustered: jax.Array) -> jax.Array:
@@ -190,7 +191,8 @@ def hdbscan(data, min_cluster_size: int = 5, min_samples: int = 2) -> np.ndarray
     Host Prim MST over the implicit mutual-reachability graph -> single-
     linkage merge tree -> condensed tree (min_cluster_size) -> eom selection
     -> labels.  Validated against sklearn.cluster.HDBSCAN in
-    tests/test_dbscan.py.  Above _PRIM_DENSE_CAP rows on a TPU backend the
+    tests/test_dbscan.py.  Above _PRIM_DENSE_CAP rows, on a platform whose
+    paths say so (utils.runtime.platform_paths().device_hdbscan), the
     sweeps go to the device Boruvka (ops/blocked_hdbscan) instead — same
     MST, same extraction.
     """
@@ -200,7 +202,7 @@ def hdbscan(data, min_cluster_size: int = 5, min_samples: int = 2) -> np.ndarray
         return np.empty(0, np.int64)
     if n == 1:
         return np.array([-1], np.int64)
-    if n > _PRIM_DENSE_CAP and jax.default_backend() != "cpu":
+    if n > _PRIM_DENSE_CAP and platform_paths().device_hdbscan:
         from mused_tpu.ops.blocked_hdbscan import hdbscan_blocked
         return hdbscan_blocked(x, min_cluster_size=min_cluster_size,
                                min_samples=min_samples)
@@ -395,8 +397,8 @@ class IncrementalDBSCAN:
     reference main.py:87-91, rebuilt EXACTLY for the insertion-only stream.
 
     Default (``max_buffer=None``) is exact incremental DBSCAN over everything
-    ever inserted, with the TPU-native split: the O(n_new * N * d) geometry
-    runs on device (MXU pairwise matmuls into a capacity-doubling resident
+    ever inserted, with the device/host split: the O(n_new * N * d) geometry
+    runs on device (pairwise matmuls into a capacity-doubling resident
     buffer + exact eps-neighbor extraction via adaptive ``top_k`` whose k is
     the batch's max within-eps count, padded to a power of two to bound
     recompiles), while the sequential cluster structure — monotone union-find

@@ -1,13 +1,13 @@
 """Frequent Directions (FD) matrix sketching — the numeric core of the framework.
 
-TPU-native design notes
------------------------
+Design notes
+------------
 The reference pipeline (kelaendi/mused) consumes an external ``swfd`` submodule
 (reference main.py:10, 58-76) whose FD sketch is updated one Python row at a
 time (``swfd.fit(row)`` in a Python loop, reference main.py:65-67).  Here the
 sketch is a *static-shape* device-resident array updated in row *blocks* so the
 whole stream update compiles to one ``lax.scan`` of (matmul + eigh + matmul)
-steps that XLA pipelines on the MXU.
+steps that XLA pipelines on the matrix units.
 
 Algorithm (Liberty 2013; Ghashami et al. 2015):
   maintain sketch B with ell rows.  To absorb a block C of up to ell new rows,
@@ -22,7 +22,7 @@ Algorithm (Liberty 2013; Ghashami et al. 2015):
 Instead of an SVD of the tall (2*ell, d) stack we take the eigendecomposition
 of the small Gram matrix G = S S^T (2*ell x 2*ell): with G = U diag(lam) U^T,
 ``V^T = diag(1/sigma) U^T S`` so ``B' = diag(sqrt(max(lam-delta,0)/lam)) U^T S``
-— one small eigh plus two MXU matmuls per shrink, no (2*ell, d) SVD.
+— one small eigh plus two matmuls per shrink, no (2*ell, d) SVD.
 
 Key trick enabling fully static shapes: **zero rows are FD no-ops** (they never
 enter the top-ell spectrum unless rank < ell, in which case delta == 0 and the
@@ -116,9 +116,9 @@ def shrink_fast(stacked: jax.Array, ell: int, *, oversample: int = 16,
     """Adaptive matmul-only shrink: rank-ell truncation via Newton-Schulz
     subspace iteration, with an exact-eigh fallback for degenerate spectra.
 
-    Motivation: jnp.linalg.eigh costs ~0.5ms of solver latency per 128x128
-    call on TPU regardless of batching, capping the FD scan at ~125k rows/s;
-    this path is pure MXU matmuls (~65us/step measured, 6.4x faster stream).
+    Motivation: jnp.linalg.eigh pays a fixed solver latency per small
+    call regardless of batching, which caps a scan of many small shrinks;
+    this path is pure matmuls.
 
     Semantics: rank-ell TRUNCATION (no delta subtraction) — never
     overestimates (Gershgorin-rescaled V keeps V V^T <= I) and empirically
@@ -201,13 +201,12 @@ def shrink_rr(stacked: jax.Array, ell: int, *, oversample: int = 16,
     """Rayleigh-Ritz shrink: randomized subspace iteration with EXACT
     small-eigh orthonormalization — the large-d counterpart of shrink_fast.
 
-    Rationale (measured on v5e, (2112, 98304) adjacency stacks): the ~1ms of
-    solver latency that motivated the Newton-Schulz chain is negligible at
-    this scale — while the NS chain itself is ~180 sequential tiny matmuls
-    (~20-40ms) AND barely converges on these stacks (orth_err 0.5-1.0),
-    routing absorbs to the m-sized eigh fallback.  Here orthonormalization
-    is a Householder QR of the G-applied iterate (~0.3ms, same wall as the
-    eigh-whiten it replaced) and the eigenbasis comes from a small eigh of
+    Rationale ((2112, 98304) adjacency stacks): the solver latency that
+    motivated the Newton-Schulz chain is negligible at this scale — while
+    the NS chain itself is ~180 sequential tiny matmuls AND barely
+    converges on these stacks (orth_err 0.5-1.0), routing absorbs to the
+    m-sized eigh fallback.  Here orthonormalization is a Householder QR of
+    the G-applied iterate and the eigenbasis comes from a small eigh of
     the Rayleigh quotient — robust on any spectrum, no health gate, ~8
     device ops per absorb.
 
@@ -217,17 +216,16 @@ def shrink_rr(stacked: jax.Array, ell: int, *, oversample: int = 16,
     On the real 100k-window fold the whitened Q stopped satisfying
     Q^T Q <= I after ~16 sequential absorbs, energy compounded
     exponentially, and the trace-residual loss silently froze at 0
-    (measured on v5e, experiments/exp_fold_diverge.py).  Householder QR is
+    (tests/test_fd.py distills that stream).  Householder QR is
     unconditionally stable — Q^T Q = I to rounding on ANY input, including
     rank-deficient iterates (trailing columns span arbitrary orthonormal
     directions, which only ever UNDER-estimates y = S^T Q energy) — and
-    measured err 0.043 vs the exact-eigh fold's 0.258 on that stream at
-    identical wall (experiments/exp_fold_fix.py).
+    measured err 0.043 vs the exact-eigh fold's 0.258 on that stream.
 
     GRAM-FREE form: G = S S^T is never materialized — each application is
     two skinny matmuls S (S^T v) at 4*m*d*r FLOPs vs the 2*m^2*d Gram (~5x
     fewer FLOPs at both the (2112, 98304) fold scale and the (2112, 1024)
-    stream-summary scale, measured 1.25-1.6x wall on v5e).  y-trick: with
+    stream-summary scale).  y-trick: with
     y = S^T Q (d, r), the Rayleigh quotient is H = Q^T G Q = y^T y and the
     reconstruction is B' = P_ell^T y^T — the final G application and the
     (ell, m) x (m, d) reconstruct matmul both collapse into products of y.
@@ -262,8 +260,8 @@ def shrink_rr(stacked: jax.Array, ell: int, *, oversample: int = 16,
         # steps scale direction i by (lam_i/lam_1)^power, and on a decaying
         # spectrum the trailing subspace would vanish below f32 before the
         # final orthonormalization could recover it (rank collapse).
-        # DEFAULT precision (TPU: one bf16 MXU pass vs HIGHEST's six): these
-        # products only SELECT the iterate — any rounding is just a slightly
+        # DEFAULT precision (a reduced-precision tensor-core pass, not
+        # HIGHEST's full f32): these products only SELECT the iterate — any rounding is just a slightly
         # different probe direction, re-orthonormalized exactly by the QR —
         # while the bound-carrying final y below stays HIGHEST
         y = jnp.dot(stacked.T, v)
@@ -321,8 +319,8 @@ def shrink_rr_pair(sketch: jax.Array, rows: jax.Array, ell: int, *,
     for _ in range(power_iters):
         # DEFAULT-precision power products (see shrink_rr): they only pick
         # the probe direction, the QR re-orthonormalizes exactly, and at
-        # fold scale they are 2 of the 3 big MXU products — one bf16 pass
-        # each instead of HIGHEST's six
+        # fold scale they are 2 of the 3 big products — one reduced-
+        # precision pass each instead of HIGHEST's full f32
         v = jnp.linalg.qr(_s(_st(v, None), None))[0]
     y = _st(v)                                            # (d, r)
     h = jnp.dot(y.T, y, precision=hi)
@@ -336,25 +334,21 @@ def shrink_rr_pair(sketch: jax.Array, rows: jax.Array, ell: int, *,
 
 
 def shrink_rr_cands(sketch: jax.Array, cand, ell: int, *,
-                    oversample: int = 16, power_iters: int = 1,
-                    use_kernel: bool = True, interpret: bool = False):
+                    oversample: int = 16, power_iters: int = 1):
     """shrink_rr_pair where the rows live in stride-binned CANDIDATE form
-    (ops/pallas/cand_matvec.CandBlock) — the implicit stack is
-    [sketch; fused-adjacency rows] and every product with the rows runs
-    straight off the int8 candidate slabs; the dense (block, n) 0/1 block
-    never exists.
+    (ops/cand_matvec.CandBlock) — the implicit stack is
+    [sketch; fused-adjacency rows] and every product with the rows is
+    built from the int8 candidate slabs one column group at a time.
 
-    Precisions mirror shrink_rr_pair's measured tuning: the power products
-    only pick the probe direction (the QR re-orthonormalizes exactly), so
-    their row products are single bf16 MXU passes — exactly what DEFAULT
-    precision does to f32 operands on TPU.  The bound-carrying final
-    y = S^T Q splits the rows' operand into the bf16 [hi | lo] pair (two
-    passes on one shared mask build): the 0/1 masks are bf16-exact, so the
-    product equals the f32 product of Q rounded to ~16 mantissa bits —
-    between Precision.HIGH and HIGHEST of the dense path; the sketch's
-    contribution stays HIGHEST.  delta is the same exact trace residual
-    (sum of dense edges — an integer — minus ||B'||_F^2), so the telescoped
-    FD bound argument of shrink_rr applies unchanged.
+    Precisions mirror shrink_rr_pair: the power products only pick the
+    probe direction (the QR re-orthonormalizes exactly), so their row
+    products take bf16 operands.  The bound-carrying final y = S^T Q splits
+    the rows' operand into the bf16 [hi | lo] pair: the 0/1 masks are
+    bf16-exact, so the product equals the f32 product of Q rounded to ~16
+    mantissa bits — between Precision.HIGH and HIGHEST of the dense path;
+    the sketch's contribution stays HIGHEST.  delta is the same exact trace
+    residual (sum of dense edges — an integer — minus ||B'||_F^2), so the
+    telescoped FD bound argument of shrink_rr applies unchanged.
 
     Returns (B' (ell, d), delta, edges) with edges == ||rows||_F^2 (the
     exact fused edge count, for sq_frobenius bookkeeping).
@@ -371,40 +365,29 @@ def shrink_rr_cands(sketch: jax.Array, cand, ell: int, *,
             "comes from the final iteration's orthonormal Q (Q Q^T <= I); "
             "with 0 iterations the raw probe can inflate ||B'||_F^2 "
             "arbitrarily while delta clamps to 0 (measured 40x, review r5)")
-    from mused_tpu.ops.pallas import cand_matvec as cm
+    from mused_tpu.ops import cand_matvec as cm
     ellr, d = sketch.shape
     m = cand.block
     m2 = ellr + m
     r = min(ell + oversample, m2)
-    rp = -(-r // 128) * 128          # kernel sublane/lane padding
     hi = jax.lax.Precision.HIGHEST
-
-    def _pad_rows(x, rows):
-        return jnp.pad(x, ((0, rows - x.shape[0]), (0, 0)))
-
-    def at_rows(v_r):     # probe-precision rows^T v_r: (m, r) -> (d, r)
-        x_t = _pad_rows(v_r.T.astype(jnp.bfloat16), rp)
-        out_t, _ = cm.matvec_t(cand, x_t, use_kernel, interpret)
-        return out_t[:r].T
-
-    def a_rows(y):        # probe-precision rows @ y: (d, r) -> (m, r)
-        yb = jnp.pad(y, ((0, 0), (0, rp - r))).astype(jnp.bfloat16)
-        return cm.matvec(cand, yb, use_kernel, interpret)[:, :r]
 
     def _absorb(sketch):
         v = jax.random.normal(jax.random.key(7), (m2, r), jnp.float32)
         for _ in range(power_iters):
-            y0 = jnp.dot(sketch.T, v[:ellr]) + at_rows(v[ellr:])
-            z = jnp.concatenate([jnp.dot(sketch, y0), a_rows(y0)], axis=0)
+            at_rows, _ = cm.matvec_t(cand, v[ellr:].T.astype(jnp.bfloat16))
+            y0 = jnp.dot(sketch.T, v[:ellr]) + at_rows.T
+            z = jnp.concatenate(
+                [jnp.dot(sketch, y0),
+                 cm.matvec(cand, y0.astype(jnp.bfloat16))], axis=0)
             v = jnp.linalg.qr(z)[0]
         v_r = v[ellr:]
         v_hi = v_r.astype(jnp.bfloat16)
         v_lo = (v_r - v_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-        x_t = jnp.concatenate([_pad_rows(v_hi.T, rp), _pad_rows(v_lo.T, rp)],
-                              axis=0)
-        out_t, edges = cm.matvec_t(cand, x_t, use_kernel, interpret)
+        out_t, edges = cm.matvec_t(
+            cand, jnp.concatenate([v_hi.T, v_lo.T], axis=0))
         y = (jnp.dot(sketch.T, v[:ellr], precision=hi)
-             + (out_t[:r] + out_t[rp:rp + r]).T)               # (d, r)
+             + (out_t[:r] + out_t[r:]).T)                    # (d, r)
         h = jnp.dot(y.T, y, precision=hi)
         h = 0.5 * (h + h.T)
         _, p = jnp.linalg.eigh(h)
@@ -507,10 +490,10 @@ def update_stream(state: FDState, rows: jax.Array, *, block_rows: int | None = N
     Default block size: ``ell`` for eigh mode (the eigh cost is O(block^2)
     cubic-ish in the stack, so small blocks win), but LARGER for subspace
     mode — the NS subspace cost is a few fixed-size matmuls regardless of the
-    stack, so absorbing 8-16x ell rows per shrink both feeds the MXU larger
-    Grams (latency-bound at 128x128) and runs FEWER truncations (lower
-    error).  Measured on v5e at d=1024/ell=64: 560k rows/s err 1075 at
-    block=ell -> 891k rows/s err 304 at block=1024 (docs/fd_roofline.md).
+    stack, so absorbing 8-16x ell rows per shrink both feeds the matrix
+    units larger Grams (small Grams are latency-bound) and runs FEWER
+    truncations (lower error: at d=1024/ell=64 the spectral error fell from
+    1075 at block=ell to 304 at block=1024).
     """
     m, d = rows.shape
     ell = state.ell
@@ -549,14 +532,11 @@ def fold_sketch(rows: jax.Array, *, ell: int, mode: str = "eigh"):
     through :func:`update_stream` in one jit.
 
     This is the engine's whole-window summary primitive (one fold per window,
-    sealed into the sliding ring by ``swfd.absorb_summary``).  An earlier
-    vmap-lane + tree-merge variant was measured SLOWER on v5e (123k vs 94k
-    rows/s at 16 lanes — the scan pipelines well, extra lanes add merge
-    shrinks) and vmap lowers the subspace shrink's health-gate ``lax.cond``
-    to a select that executes the eigh fallback unconditionally; the
-    sequential fold is both the fastest measured configuration and the one
-    that keeps the gate a real branch, so the lane machinery was removed
-    (VERDICT r2 weak #6).  Cross-chip merging (the true parallel axis) lives
+    sealed into the sliding ring by ``swfd.absorb_summary``).  There is no
+    vmap-lane + tree-merge variant: extra lanes add merge shrinks, and vmap
+    lowers the subspace shrink's health-gate ``lax.cond`` to a select that
+    executes the eigh fallback unconditionally; the sequential fold keeps
+    the gate a real branch.  Cross-chip merging (the true parallel axis) lives
     in parallel/sketch_merge.py.
 
     Returns (sketch (ell, d), sq_frobenius, shrink_loss_upper).

@@ -1,15 +1,15 @@
 """Device KMeans family: jitted kmeans++ / Lloyd, and MiniBatchKMeans state.
 
 Replaces sklearn KMeans / MiniBatchKMeans (reference matrix_operations.py:
-149-153; main.py:82-85).  TPU-first choices:
+149-153; main.py:82-85).  Device-first choices:
 
   * the number of clusters is DYNAMIC per window in the reference (it uses
     the window's unique ground-truth label count, reference main.py:41,97 — a
     quirk preserved for comparability, SURVEY.md §2.4).  A dynamic k would
     recompile per window, so centroids are padded to a static ``k_max`` and
     dead centers are masked to +inf distance;
-  * assignment distances and centroid accumulation are one-hot matmuls on the
-    MXU, not gathers;
+  * assignment distances and centroid accumulation are one-hot matmuls,
+    not gathers;
   * Lloyd runs under ``lax.while_loop`` with a center-shift tolerance.
 """
 from __future__ import annotations

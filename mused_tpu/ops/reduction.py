@@ -3,7 +3,7 @@
 Replaces sklearn's ``TruncatedSVD(n_components, random_state).fit_transform``
 (reference matrix_operations.py:143-147) — which is itself Halko-style
 randomized SVD — with a pure-JAX implementation whose heavy ops (matmul, QR of
-a tall-skinny block, small SVD) all map onto the MXU.
+a tall-skinny block, small SVD) all map onto matmuls.
 
 ``reduced = X @ V_r`` (equivalently ``U_r @ diag(s_r)``), matching sklearn's
 fit_transform output up to the usual sign/rotation ambiguity (comparisons in

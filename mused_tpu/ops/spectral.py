@@ -2,8 +2,8 @@
 
 Not in the reference's approach list but part of this framework's target
 workloads (BASELINE.md config #2: crisis stream + spectral clustering) — and
-a natural fit on TPU: the whole algorithm is (normalize adjacency -> eigh ->
-KMeans), i.e. exactly the dense-matrix ops the MXU/eigh path already runs.
+a natural fit for the device: the whole algorithm is (normalize adjacency ->
+eigh -> KMeans), i.e. exactly the dense-matrix ops the engine already runs.
 
 Normalized-cuts formulation (Ng-Jordan-Weiss): rows of the top-k eigenvector
 matrix of the symmetric-normalized affinity D^-1/2 (A + A^T)/2 D^-1/2,

@@ -1,6 +1,6 @@
 """Sliding-window Frequent Directions (SWFD) — sequence-based variant.
 
-Re-implements, TPU-native and from the literature, the contract of the
+Re-implements, device-native and from the literature, the contract of the
 reference's missing ``swfd`` git submodule (``SeqBasedSWFD``; call sites at
 reference main.py:10, 58-76: constructor ``SeqBasedSWFD(N, R, d, sketch_dim)``,
 per-row ``.fit(row)``, query ``.get() -> (B, ...)`` with B of shape
@@ -157,9 +157,9 @@ def absorb_summary(state: SWFDState, sketch: jax.Array, n_rows: jax.Array,
     """Seal a pre-sketched row block (e.g. one whole window sketched by
     ``fd.fold_sketch``) directly into the ring as one block.
 
-    This is the engine's TPU fast path: instead of scanning n/ell sequential
-    shrinks through the active FD, the window's rows are sketched with
-    batched-lane FD and enter the sliding window as a single summary block.
+    This is the engine's fast path: instead of scanning n/ell sequential
+    shrinks through the active FD, the window's rows are sketched with one
+    fold and enter the sliding window as a single summary block.
     Valid by FD mergeability; expiry granularity becomes the block ( = window
     when used per-window, which is exactly the tumbling-query regime).
     ``sketch`` must be (ell, d) like the ring slots.
@@ -215,7 +215,7 @@ class SeqBasedSWFD:
     from the exact per-block shrink losses, which need no norm bound.
 
     ``fit`` accepts a single (1, d) row for drop-in parity but also any (m, d)
-    block — feed blocks for TPU throughput.
+    block — feed blocks for device throughput.
 
     ``headroom``: the internal sketch rank is ``sketch_dim + headroom`` while
     ``get()`` still shrinks to ``sketch_dim`` — each block's FD loss scales as
@@ -271,7 +271,7 @@ class SeqBasedSWFD:
             # absorb the unaligned remainder on a COPY so block boundaries in
             # the persistent state stay exact.  Pad to ONE chunk shape:
             # zero rows are FD no-ops, and a distinct trace per remainder
-            # size cost a fresh (expensive, remote) compile for each of up
+            # size cost a fresh compile for each of up
             # to chunk-1 sizes (review r5)
             buf = _np.concatenate(self._pending, axis=0)
             padded = _np.zeros((self.chunk, buf.shape[1]), buf.dtype)

@@ -15,18 +15,17 @@ matrix is n×n over the same rows).  Every chip sweeps EVERY row block, but
 only its (block, n/p) column slice:
 
   per row block b (lockstep on all chips):
-    row panel = psum(owner chip's slice)                  — O(block·K) ICI
-    stride-binned kNN candidates over the local columns   — MXU/VPU
-      (ops/pallas/blocked_select kernel on TPU, its bit-equal XLA
-       emulation elsewhere)
+    row panel = psum(owner chip's slice)                  — O(block·K) link
+    stride-binned kNN candidates over the local columns
+      (ops/binned_select)
     global candidate merge: pmax values, then pmin of the
-      achieving global group                              — O(block·nbins) ICI
-      (bit-identical tie semantics to the single-chip kernel: the lowest
-       global group among achievers of the max wins)
+      achieving global group                              — O(block·nbins) link
+      (bit-identical tie semantics to the single-chip binned path: the
+       lowest global group among achievers of the max wins)
     replicated exact top-k (budgeted_keep) -> each chip's
-      (block, n/p) adjacency slice, scatter-free          — VPU
+      (block, n/p) adjacency slice, scatter-free
     column-sharded FD absorb: every contraction over the
-      sharded d axis is a psum of a small (m2, r) product — MXU + ICI
+      sharded d axis is a psum of a small (m2, r) product
 
 The FD shrink math is identical to the single-chip shrinks (ops/fd.py:
 shrink / shrink_rr_pair — same bound arguments, same honest trace-residual
@@ -50,9 +49,9 @@ delta is added to the honest loss).  The mesh shape IS the layout: a
 (p, 1) mesh selects pure column sharding, (pd, pm>1) the grid.
 
 Reference behavior reproduced: the per-modality kNN adjacency conventions of
-/root/reference/matrix_operations.py:14-132 (per-modality k, validity,
+reference matrix_operations.py:14-132 (per-modality k, validity,
 self-exclusion, OR fusion :134-141) and the whole-window sketch feed of
-/root/reference/main.py:58-76 — re-decomposed for a TPU mesh; the reference
+reference main.py:58-76 — re-decomposed for a device mesh; the reference
 is single-process NumPy and cannot run this regime at all.
 """
 from __future__ import annotations
@@ -64,8 +63,10 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from mused_tpu.ops import affinity, fd
+from mused_tpu.ops import binned_select as bs
 from mused_tpu.ops import blocked_affinity as ba
-from mused_tpu.ops.pallas import blocked_select as bs
+from mused_tpu.ops import cand_matvec as cm
+from mused_tpu.utils.runtime import platform_paths
 
 shard_map = jax.shard_map
 
@@ -80,33 +81,28 @@ def default_nbins_colsharded(n: int, p: int, target_reduction: int = 64,
                              k_max: int = 0, nbins_cap: int = 4096) -> int:
     """Candidate-bin count for a p-way column-sharded sweep.
 
-    Same structure as blocked_select.default_nbins (nbins = n/g), with the
+    Same structure as binned_select.default_nbins (nbins = n/g), with the
     extra constraint p | g so each chip's column shard covers WHOLE
     candidate groups: n/p = nbins · (g/p).  That makes local binning use
     the global slot function unchanged (the shard offset q·n/p is a
     multiple of nbins, so col % nbins is the same slot locally and
     globally) and keeps per-chip group ids in int8 range.
 
-    Two budgets bound the geometry (review r5 finding — the old resolver
-    capped g at 127 GLOBALLY although the int8 budget is per-chip, so the
-    ~1M-row capacity windows this layout exists for resolved to
-    nbins=16k and the kernel's (tm, nbins) VMEM accumulator could not
-    compile):
+    Two budgets bound the geometry:
 
       * int8 group ids are PER-CHIP: g/p <= 127, i.e. g <= 127*p;
-      * the kernel's (tm, nbins) accumulator must fit VMEM:
-        nbins = n/g <= ``nbins_cap`` (4096 ~= 42 MB at tm=2048), i.e.
-        g >= n/nbins_cap.
+      * the (block, nbins) candidate buffers stay small:
+        nbins = n/g <= ``nbins_cap``, i.e. g >= n/nbins_cap.
 
     Preferences, in order: enough candidate bins for recall (nbins >=
-    8·k_max — floored at the smallest admissible g), then MXU-lane-aligned
+    8·k_max — floored at the smallest admissible g), then 128-aligned
     bins (128 | nbins), then the largest reduction within
-    max(target_reduction, VMEM floor).  Returns 0 when no admissible
+    max(target_reduction, the nbins_cap floor).  Returns 0 when no admissible
     geometry exists (p ∤ n, or no divisor satisfies both budgets).
     """
     if p < 1 or p > 127 or n % p:
         return 0
-    g_floor = max(p, -(-n // nbins_cap))        # VMEM: nbins <= nbins_cap
+    g_floor = max(p, -(-n // nbins_cap))        # nbins <= nbins_cap
     g_hi = min(max(target_reduction, g_floor), 127 * p)
     cands = [g for g in range(p, g_hi + 1)
              if g % p == 0 and n % g == 0
@@ -126,7 +122,7 @@ def _bcast_rows(x_local: jax.Array, start, block: int,
 
     Each global row block lives wholly on one chip (block | n/p, enforced
     by the caller); the owner slices locally, everyone else contributes
-    zeros, and one psum replicates the panel — O(block · K) ICI bytes per
+    zeros, and one psum replicates the panel — O(block · K) interconnect bytes per
     block instead of the O(n · K) replication the row-sharded layout pays
     up front.  Exact for every dtype (a one-hot sum adds zeros).
     """
@@ -151,7 +147,7 @@ def _merge_candidates(vals: jax.Array, grp_i8: jax.Array, groups_local: int,
 
     pmax merges the values; the winning group is the LOWEST global group
     among achievers of the max (pmin over achievers) — exactly the
-    single-chip kernel's strict-> / first-argmax tie rule, since within a
+    single-chip first-argmax tie rule, since within a
     chip the local argmax already picked the lowest local group and global
     group ids increase with the chip index.
     """
@@ -165,7 +161,7 @@ def _merge_candidates(vals: jax.Array, grp_i8: jax.Array, groups_local: int,
 def _adjacency_local(keeps, gwins, groups_local: int, nbins: int,
                      axis_name: str = _AXIS) -> jax.Array:
     """(block, n/p) bool adjacency slice from replicated kept candidates —
-    the column-sharded mirror of blocked_select.adjacency_from_candidates
+    the column-sharded mirror of binned_select.adjacency_from_candidates
     (same scatter-free broadcast; this chip materializes only the groups it
     owns, offset me·groups_local in the global group space)."""
     me = jax.lax.axis_index(axis_name)
@@ -196,7 +192,7 @@ def _prep_local_modalities(feat_shards: tuple, types: tuple, k_basis: int,
                            axis_name: str = _AXIS) -> list:
     """Per-chip modality descriptors [(metric, tensor, valid, stats, k)].
 
-    ``metric`` is a blocked_select kernel metric ("dot"/"jaccard"/"chord3"/
+    ``metric`` is a binned-candidate metric ("dot"/"jaccard"/"chord3"/
     "l1"/"chord") or "username" (dense equality, no kNN).  ``stats`` is the
     (n/p,) row statistic the metric needs (jaccard token sums, chord squared
     norms), else None.  Numerics identical to blocked_affinity's column
@@ -234,8 +230,8 @@ def _prep_local_modalities(feat_shards: tuple, types: tuple, k_basis: int,
         ("chord3", _unit_xyz(loc, loc_valid), loc_valid, None, k_basis),
         ("l1", tim, tim_valid, None, 3 * k_basis),
         ("username", uid, uid >= 0, None, 0),
-        # int8 tag counts (round 4, like standard_columns): exact up to the
-        # token cap, 2x MXU rate, half the panel bytes — sims bit-identical
+        # int8 tag counts (like standard_columns): exact up to the token
+        # cap, half the panel bytes — sims bit-identical
         ("jaccard", bs.pad_features_128(tags.astype(jnp.int8)),
          tags_valid, tags_sums, k_basis),
         ("dot", bs.pad_features_128(text.astype(jnp.bfloat16)),
@@ -283,14 +279,12 @@ def _prep_generic(feat_shards: tuple, types: tuple, k_basis: int) -> list:
 
 
 def _sim_strip(metric: str, t, tr, s_c, s_r):
-    """(block, n/p) similarity strip for the XLA emulation path — the same
-    formulas as blocked_affinity.fused_rowblock's strip builders and the
-    kernel's _sim_tile (the emulation oracle is bit-parity-tested against
-    the kernel)."""
+    """(block, n/p) similarity strip — the same formulas as
+    blocked_affinity.fused_rowblock's strip and binned builders."""
     if metric == "dot":
         return jnp.dot(tr, t.T, preferred_element_type=jnp.float32)
     if metric == "jaccard":
-        inter = ba._count_dot(tr, t)      # int8 MXU path for int8 counts
+        inter = ba._count_dot(tr, t)      # int8 dot path for int8 counts
         return inter / jnp.maximum(
             s_r[:, None] + s_c[None, :] - inter, 1e-9)
     if metric == "chord3":
@@ -308,8 +302,7 @@ def _sim_strip(metric: str, t, tr, s_c, s_r):
 
 
 def _select_candidates_local(mods: list, start, block: int, n: int,
-                             nbins: int, use_kernel: bool, tn: int,
-                             axis_name: str = _AXIS):
+                             nbins: int, axis_name: str = _AXIS):
     """Globally-merged kNN candidates for rows [start, start+block):
     [(keep, gwin)] per kNN modality (replicated (block, nbins) kept-mask +
     winning GLOBAL group ids), plus the username modality's local
@@ -319,11 +312,11 @@ def _select_candidates_local(mods: list, start, block: int, n: int,
     n_local = mods[0][1].shape[0]
     groups_local = n_local // nbins
     me = jax.lax.axis_index(axis_name)
-    # self-column mask offset: the kernel/emulation compare
+    # self-column mask offset: the compare
     # (start_adj + local row) == local column  <=>  global row == global col
     start_adj = start - me * n_local
 
-    items, user = [], None
+    cands, user = [], None
     for metric, t, valid, stats, k in mods:
         if metric == "username":
             user = (t, valid)           # k ignored (ref :55-72)
@@ -335,62 +328,14 @@ def _select_candidates_local(mods: list, start, block: int, n: int,
         tr = _bcast_rows(t, start, block, axis_name)
         sr = (_bcast_rows(stats, start, block, axis_name)
               if stats is not None else None)
-        items.append((metric, t, valid, stats, k_eff, vr, tr, sr))
-
-    raw = _raw_candidates(items, start_adj, nbins=nbins, block=block,
-                          tn=tn, use_kernel=use_kernel)
-    cands = []
-    for (vals, grp), (_, _, _, _, k_eff, vr, _, _) in zip(raw, items):
+        vals, grp = bs.binned_candidates_reference(
+            _sim_strip(metric, t, tr, stats, sr), valid, start_adj, nbins)
         vmax, gwin = _merge_candidates(vals, grp, groups_local, axis_name)
         cands.append((bs.budgeted_keep(vmax, vr, k_eff), gwin))
     return cands, user
 
 
-def _raw_candidates(items: list, start_adj, *, nbins: int, block: int,
-                    tn: int, use_kernel: bool, interpret: bool = False):
-    """Per-modality (vals, grp) candidate buffers for prepared items
-    [(metric, cols, colv, stats, k_eff, vr, rows, row_stats)] — no
-    collectives, so the kernel/pair plumbing is unit-testable off-mesh
-    (interpret mode) against the emulation branch."""
-    raw = []
-    if use_kernel:
-        # pair consecutive modalities into ONE kernel sweep — each sweep
-        # pays near-constant grid/DMA/epilogue cost, so the pair lands
-        # near max of the singles (the single-chip path's measured
-        # 9.07 -> 6.51 ms/block for loc+time; the pair kernel's
-        # row_stats operands ARE the colsharded contract, built for this
-        # call site — review r5 finding).  Outputs are per-modality
-        # identical to two single launches.
-        i = 0
-        while i < len(items):
-            if i + 1 < len(items):
-                ma, ta, va, sa, _, _, tra, sra = items[i]
-                mb, tb, vb, sb, _, _, trb, srb = items[i + 1]
-                vA, gA, vB, gB = bs.binned_candidates_pair_pallas(
-                    ta, tb, tra, trb, va, vb, start_adj,
-                    metricA=ma, metricB=mb, nbins=nbins, block=block,
-                    row_sumsA=sa, row_statsA=sra,
-                    row_sumsB=sb, row_statsB=srb, tn=tn,
-                    interpret=interpret)
-                raw += [(vA, gA), (vB, gB)]
-                i += 2
-            else:
-                m_, t_, v_, s_, _, _, tr_, sr_ = items[i]
-                raw.append(bs.binned_candidates_pallas(
-                    t_, tr_, v_, start_adj, metric=m_, nbins=nbins,
-                    block=block, row_sums=s_, row_stats=sr_, tn=tn,
-                    interpret=interpret))
-                i += 1
-    else:
-        for m_, t_, v_, s_, _, _, tr_, sr_ in items:
-            sim = _sim_strip(m_, t_, tr_, s_, sr_)
-            raw.append(bs.binned_candidates_reference(sim, v_, start_adj,
-                                                      nbins))
-    return raw
-
-
 def _fused_block_local(mods: list, start, block: int, n: int, nbins: int,
-                       use_kernel: bool, tn: int,
                        axis_name: str = _AXIS) -> jax.Array:
     """This chip's (block, n/p) slice of fused adjacency rows
     [start, start+block) — OR of the per-modality kNN adjacencies
@@ -399,7 +344,7 @@ def _fused_block_local(mods: list, start, block: int, n: int, nbins: int,
     groups_local = n_local // nbins
     me = jax.lax.axis_index(axis_name)
     cands, user = _select_candidates_local(mods, start, block, n, nbins,
-                                           use_kernel, tn, axis_name)
+                                           axis_name)
     if cands:
         fused = _adjacency_local([kp for kp, _ in cands],
                                  [gw for _, gw in cands],
@@ -427,11 +372,10 @@ def _cand_block_local(cands: list, user, start, block: int, n_local: int,
     The merged candidates carry GLOBAL group ids; each chip re-encodes the
     winners that land in ITS column range to LOCAL int8 ids (everything
     else -> -1) and records its global group offset in CandBlock.g0, so
-    cand_matvec's kernels walk only the local groups while the username
+    cand_matvec's products walk only the local groups while the username
     col ids / self-column compare stay globally correct.  The implicit
     matrix equals _fused_block_local's dense slice bit-for-bit (same
     budgeted_keep winners, same uid equality; oracle-tested)."""
-    from mused_tpu.ops.pallas import cand_matvec as cm
     groups_local = n_local // nbins
     me = jax.lax.axis_index(axis_name)
     g0 = (me * groups_local).astype(jnp.int32)
@@ -600,34 +544,26 @@ def _shrink_rr_cands_psum(sketch_l: jax.Array, cand, ell: int,
     (_cand_block_local), and — exactly like _shrink_rr_pair_psum — every
     contraction over the sharded d axis psums its shard partials while the
     iterate v / Rayleigh quotient stay replicated.  The G-applications run
-    straight off the int8 slabs (ops/pallas/cand_matvec with the chip's
-    group offset); the dense (block, n/p) slice never exists.  delta keeps
+    one local column group at a time from the int8 slabs (ops/cand_matvec
+    with the chip's group offset).  delta keeps
     the exact trace-residual accounting: edges is the psum of per-chip
     integer edge counts, so the telescoped FD bound argument of
     fd.shrink_rr applies unchanged.
 
     Returns (B' (ell, n/p), delta, edges) — edges GLOBAL (replicated), for
     the caller's sq_frobenius bookkeeping."""
-    from mused_tpu.ops.pallas import cand_matvec as cm
-    use_kernel = jax.default_backend() == "tpu"
     hi = jax.lax.Precision.HIGHEST
     ellr = sketch_l.shape[0]
     m = cand.block
     m2 = ellr + m
     r = min(ell + oversample, m2)
-    rp = -(-r // 128) * 128          # kernel sublane/lane padding
-
-    def _pad_rows(x, rows):
-        return jnp.pad(x, ((0, rows - x.shape[0]), (0, 0)))
 
     def at_rows(v_r):     # probe-precision rows^T v_r: (m, r) -> (d/p, r)
-        x_t = _pad_rows(v_r.T.astype(jnp.bfloat16), rp)
-        out_t, _ = cm.matvec_t(cand, x_t, use_kernel)
-        return out_t[:r].T                        # local slice — no psum
+        out_t, _ = cm.matvec_t(cand, v_r.T.astype(jnp.bfloat16))
+        return out_t.T                            # local slice — no psum
 
     def a_rows(y_l):      # probe-precision rows @ y: (d/p, r) -> (m, r)
-        yb = jnp.pad(y_l, ((0, 0), (0, rp - r))).astype(jnp.bfloat16)
-        return jax.lax.psum(cm.matvec(cand, yb, use_kernel)[:, :r],
+        return jax.lax.psum(cm.matvec(cand, y_l.astype(jnp.bfloat16)),
                             axis_name)
 
     v = jax.random.normal(jax.random.key(7), (m2, r), jnp.float32)
@@ -640,12 +576,11 @@ def _shrink_rr_cands_psum(sketch_l: jax.Array, cand, ell: int,
     v_r = v[ellr:]
     v_hi = v_r.astype(jnp.bfloat16)
     v_lo = (v_r - v_hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    x_t = jnp.concatenate([_pad_rows(v_hi.T, rp), _pad_rows(v_lo.T, rp)],
-                          axis=0)
-    out_t, edges_l = cm.matvec_t(cand, x_t, use_kernel)
+    out_t, edges_l = cm.matvec_t(
+        cand, jnp.concatenate([v_hi.T, v_lo.T], axis=0))
     edges = jax.lax.psum(edges_l, axis_name)
     y = (jnp.dot(sketch_l.T, v[:ellr], precision=hi)
-         + (out_t[:r] + out_t[rp:rp + r]).T)      # (d/p, r) local
+         + (out_t[:r] + out_t[r:]).T)             # (d/p, r) local
     h = jax.lax.psum(jnp.dot(y.T, y, precision=hi), axis_name)
     h = 0.5 * (h + h.T)
     _, p = jnp.linalg.eigh(h)
@@ -742,7 +677,7 @@ def _resolve_geometry(n: int, mesh, block: int, k_basis: int,
     if n_local // nbins > 127:
         raise ValueError(
             f"nbins={nbins} gives {n_local // nbins} per-chip groups — past "
-            "the kernel's int8 group-id budget (127); use more bins")
+            "the int8 group-id budget (127); use more bins")
     return nbins
 
 
@@ -773,9 +708,8 @@ def colsharded_blocked_fd_sketch(feats: tuple, types: tuple, *, ell: int,
     slice never materializes; the fold's d-contractions run off the int8
     slabs and psum exactly like the dense colsharded fold.  Needs the rr
     shrink (every colsharded modality is binned-eligible by construction —
-    this layout has no strip path).  None = auto: ON on TPU, OFF elsewhere
-    (the per-group XLA emulation saves nothing on CPU); explicit True
-    forces the emulation products (the mesh-test oracle).  Composes with
+    this layout has no strip path).  None = the platform's default
+    (utils.runtime.platform_paths).  Composes with
     the GRID layout unchanged: per-group sweeps absorb candidates, the
     cross-group merge shrink consumes sketches and stays dense.
 
@@ -792,7 +726,7 @@ def colsharded_blocked_fd_sketch(feats: tuple, types: tuple, *, ell: int,
         raise ValueError(f"colsharded fold supports 'eigh'/'rr' (via "
                          f"'subspace'), got {mode!r}")
     if cand_fold is None:
-        cand_fold = mode == "rr" and jax.default_backend() == "tpu"
+        cand_fold = mode == "rr" and platform_paths().cand_fold
     elif cand_fold and mode != "rr":
         raise ValueError("colsharded cand_fold=True needs the rr shrink "
                          "(mode='subspace'/'rr')")
@@ -813,8 +747,6 @@ def _colsharded_fd_impl(feats: tuple, *, types: tuple, ell: int, block: int,
     n = feats[0].shape[0]
     col_axis, row_axis, pm, pd = _mesh_axes(mesh)
     n_local = n // pm
-    use_kernel = jax.default_backend() == "tpu"
-    tn = bs.pick_tn(n_local, nbins)
     starts = jnp.arange(n // block, dtype=jnp.int32) * block
 
     def body(starts_s, *feat_shards):
@@ -825,12 +757,12 @@ def _colsharded_fd_impl(feats: tuple, *, types: tuple, ell: int, block: int,
         def step(state, start):
             if cand_fold:
                 cands, user = _select_candidates_local(
-                    mods, start, block, n, nbins, use_kernel, tn, col_axis)
+                    mods, start, block, n, nbins, col_axis)
                 cand = _cand_block_local(cands, user, start, block, n_local,
                                          nbins, col_axis)
                 return _absorb_colsharded_cand(state, cand, col_axis), None
             fused = _fused_block_local(mods, start, block, n, nbins,
-                                       use_kernel, tn, col_axis)
+                                       col_axis)
             return _update_colsharded(state, fused.astype(out_dt), mode,
                                       col_axis), None
 
@@ -904,8 +836,6 @@ def _colsharded_svd_impl(feats: tuple, key, *, types: tuple, rank: int,
     n = feats[0].shape[0]
     col_axis, row_axis, pm, pd = _mesh_axes(mesh)
     n_local = n // pm
-    use_kernel = jax.default_backend() == "tpu"
-    tn = bs.pick_tn(n_local, nbins)
     r = min(rank + oversample, n)
     starts = jnp.arange(n // block, dtype=jnp.int32) * block
 
@@ -921,7 +851,7 @@ def _colsharded_svd_impl(feats: tuple, key, *, types: tuple, rank: int,
         def sweep(f, init):
             def step(acc, start):
                 fused = _fused_block_local(
-                    mods, start, block, n, nbins, use_kernel, tn,
+                    mods, start, block, n, nbins,
                     col_axis).astype(jnp.bfloat16)
                 return f(acc, fused, start), None
             acc, _ = jax.lax.scan(step, init, starts_s)
@@ -1002,8 +932,6 @@ def _colsharded_spectral_impl(feats: tuple, key, *, types: tuple,
     n = feats[0].shape[0]
     col_axis, row_axis, pm, pd = _mesh_axes(mesh)
     n_local = n // pm
-    use_kernel = jax.default_backend() == "tpu"
-    tn = bs.pick_tn(n_local, nbins)
     m = min(k_max + oversample, n)
     starts = jnp.arange(n // block, dtype=jnp.int32) * block
 
@@ -1025,7 +953,6 @@ def _colsharded_spectral_impl(feats: tuple, key, *, types: tuple,
         def sweep(f, init):
             def step(acc, start):
                 fused = _fused_block_local(mods, start, block, n, nbins,
-                                           use_kernel, tn,
                                            col_axis).astype(jnp.float32)
                 return f(acc, fused, start), None
             acc, _ = jax.lax.scan(step, init, starts_s)
@@ -1090,16 +1017,13 @@ def colsharded_fused_rows(feats: tuple, types: tuple, *, start: int,
     col_axis, _, pm, _ = _mesh_axes(mesh)
     nbins = _resolve_geometry(n, mesh, block, k_basis, nbins,
                               check_row_groups=False)
-    n_local = n // pm
-    use_kernel = jax.default_backend() == "tpu"
-    tn = bs.pick_tn(n_local, nbins)
     feats = _place_row_sharded(feats, mesh, col_axis)
 
     def body(*feat_shards):
         mods = _prep_local_modalities(feat_shards, types, k_basis,
                                       tags_dim, text_dim, col_axis)
         return _fused_block_local(mods, jnp.int32(start), block, n, nbins,
-                                  use_kernel, tn, col_axis)
+                                  col_axis)
 
     in_specs = tuple(P(col_axis, *([None] * (f.ndim - 1))) for f in feats)
     return shard_map(body, mesh=mesh, in_specs=in_specs,

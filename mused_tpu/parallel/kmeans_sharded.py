@@ -1,7 +1,7 @@
 """Row-sharded KMeans: SPMD Lloyd iterations over the mesh "data" axis.
 
 Each chip owns a row shard of the points; per iteration it assigns its rows
-locally (MXU distance block) and contributes partial centroid sums/counts via
+locally (matmul distance block) and contributes partial centroid sums/counts via
 ``psum`` — the classic data-parallel KMeans.  Centroids stay replicated (tiny:
 k_max x d).  Matches ops.kmeans semantics (dynamic k masking, kmeans++ init,
 shift tolerance) so single-chip and multi-chip results agree up to fp

@@ -7,7 +7,7 @@ Axes (the framework's parallelism vocabulary, SURVEY.md §2 rows 19-20):
             columns sharded, contractions psum over this axis)
 
 The reference has no distributed layer at all (single NumPy process); the
-multi-chip story is new TPU-native work built on FD mergeability.
+multi-chip story is new work built on FD mergeability.
 """
 from __future__ import annotations
 

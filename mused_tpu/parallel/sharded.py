@@ -2,15 +2,16 @@
 
 Row-parallel decomposition of the streaming window pipeline (SURVEY.md §5.7:
 the O(n^2) affinity construction is the moral analog of blockwise attention —
-each chip owns a row block, column data is gathered/rotated over ICI):
+each chip owns a row block, column data is gathered/rotated over the
+interconnect):
 
   per chip (row shard of m = n/p window rows):
-    all_gather column features (small: coords, times, ids)  ......... ICI
-    rectangular (m, n) similarity blocks -> top_k -> adjacency shard  MXU
-    global TF-IDF document frequencies ....................... psum   ICI
-    OR-fuse modality shards .................................. VPU
-    local FD sketch of the fused row shard ................... MXU+eigh
-    sketch merge ............................... all_gather/ring  ICI
+    all_gather column features (small: coords, times, ids)  ......... link
+    rectangular (m, n) similarity blocks -> top_k -> adjacency shard  matmul
+    global TF-IDF document frequencies ....................... psum   link
+    OR-fuse modality shards .................................. elementwise
+    local FD sketch of the fused row shard ................... matmul+eigh
+    sketch merge ............................... all_gather/ring  link
     KMeans on the replicated reduced matrix (n x ell, tiny)
 
 Feature-hash ("model") axis sharding: hashed tag/text feature columns can be
@@ -46,7 +47,7 @@ def _row_shard_fused_adjacency(loc_s, time_s, uid_s, tags_s, text_s,
     global TF-IDF document frequencies.  Sparse-token callers pass the
     PRE-GATHERED dense panels (tags_f/text_f) built from all_gathered
     token ids — gathering the densified (m, dim) f32 panels here would
-    cost ~dim/T x the ICI bytes (review r5 finding).
+    cost ~dim/T x the interconnect bytes (review r5 finding).
     """
     m = loc_s.shape[0]
     p_idx = jax.lax.axis_index(axis_name)
@@ -187,7 +188,7 @@ def _features_to_fused_shard(feat_shards, types, k_basis: int, tags_dim: int,
     if types[0] == "standard_sparse":
         loc, tim, uid, tags_ids, text_ids, text_cnt, tags_valid = feat_shards
         # gather the SPARSE token tensors (int16 ids / uint8 counts) over
-        # ICI and densify on BOTH sides of the gather: densify-then-gather
+        # the interconnect and densify on BOTH sides of the gather: densify-then-gather
         # shipped the (m, tags_dim/text_dim) f32 panels — ~dim/T x the
         # bytes — for a bitwise-identical result
         tags = affinity.counts_from_tokens(tags_ids, None, tags_dim)
@@ -384,7 +385,7 @@ def sharded_engine_step(swfd_state, minibatch_state, feats: tuple,
 
     Pipeline per chip (SURVEY.md §7.2 step 7):
       fused (m, n) adjacency shard (all_gather'd column features, psum'd IDF)
-      -> SWFDMC: local FD of the shard -> ICI sketch merge -> replicated
+      -> SWFDMC: local FD of the shard -> sketch merge -> replicated
          SWFD ring absorb/query (tiny ell x n state)
          else: distributed randomized SVD (psum'd A^T-products)
       -> row-sharded KMeans (psum'd centroid accumulation) | replicated
@@ -446,7 +447,7 @@ def sharded_window_step(location, times, user_ids, tags, text, n_clusters,
                         key, *, k_basis: int, reduced_dim: int, k_max: int,
                         mesh):
     """Full multi-chip window step: sharded affinity -> fused shard -> local
-    FD -> ICI sketch merge -> KMeans.  Inputs are (n, ...) arrays; the "data"
+    FD -> sketch merge -> KMeans.  Inputs are (n, ...) arrays; the "data"
     axis of the mesh shards rows.  Returns (labels (n,), reduced (n, dim))."""
 
     def body(loc_s, time_s, uid_s, tags_s, text_s):
@@ -503,7 +504,7 @@ def sharded_blocked_fd_sketch(cols, *, ell: int, block: int, k_basis: int,
     column feature tensors are replicated (they are the small per-row
     features, not the O(n^2) matrix), each chip folds a local FD sketch over
     its contiguous range of row blocks, and the per-chip sketches merge over
-    ICI (allgather or ring — FD mergeability, SURVEY.md §2.8).  Scaling is
+    the interconnect (allgather or ring — FD mergeability, SURVEY.md §2.8).  Scaling is
     embarrassing up to the merge: p chips sweep p-fold fewer blocks each.
 
     Returns (sketch (ell, n), sq_frobenius, shrink_loss) with the same
@@ -520,16 +521,16 @@ def sharded_blocked_fd_sketch(cols, *, ell: int, block: int, k_basis: int,
     # "subspace" at fold scale routes to the Rayleigh-Ritz shrink, matching
     # the single-chip blocked fold (see fd.resolve_fold_mode)
     mode = fd.resolve_fold_mode(mode)
-    # candidate-native fold (ops/pallas/cand_matvec): same gating as the
+    # candidate-native fold (ops/cand_matvec): same gating as the
     # single-chip path — per-shard sweeps are independent, so each chip
     # absorbs its own candidate blocks; only the final merge communicates
     from mused_tpu.ops import blocked_affinity as ba
-    from mused_tpu.ops.pallas import blocked_select as bs
+    from mused_tpu.utils.runtime import platform_paths
     eligible = (mode == "rr" and select == "binned"
                 and ba.cand_fold_supported(cols.kinds, cols.tensors, nbins,
                                            n))
     if cand_fold is None:
-        cand_fold = eligible and jax.default_backend() == "tpu"
+        cand_fold = eligible and platform_paths().cand_fold
     elif cand_fold and not eligible:
         raise ValueError(
             "cand_fold=True needs the rr shrink, select='binned', "
@@ -539,22 +540,20 @@ def sharded_blocked_fd_sketch(cols, *, ell: int, block: int, k_basis: int,
         cols.tensors, cols.valids, cols.idf, kinds=cols.kinds, ell=ell,
         block=block, k_basis=k_basis, mesh=mesh, topology=topology,
         mode=mode, approx_knn=approx_knn, select=select, nbins=nbins,
-        cand_fold=cand_fold, tn=bs.pick_tn(n, nbins) if cand_fold else 0,
-        use_kernel=jax.default_backend() == "tpu")
+        cand_fold=cand_fold)
 
 
 @functools.partial(jax.jit,
                    static_argnames=("kinds", "ell", "block", "k_basis",
                                     "mesh", "topology", "mode",
                                     "approx_knn", "select", "nbins",
-                                    "cand_fold", "tn", "use_kernel"))
+                                    "cand_fold"))
 def _sharded_blocked_fd_impl(tensors, valids, idf, *, kinds, ell: int,
                              block: int, k_basis: int, mesh,
                              topology: str, mode: str = "subspace",
                              approx_knn: bool = False,
                              select: str = "strip", nbins: int = 0,
-                             cand_fold: bool = False, tn: int = 0,
-                             use_kernel: bool = False):
+                             cand_fold: bool = False):
     from mused_tpu.ops import blocked_affinity as ba
     t0 = tensors[0]
     n = (t0[0] if isinstance(t0, tuple) else t0).shape[0]
@@ -566,12 +565,10 @@ def _sharded_blocked_fd_impl(tensors, valids, idf, *, kinds, ell: int,
 
         def step(state, start):
             if cand_fold:
-                # candidate-native absorb: the dense (block, n) block
-                # never materializes (ops/pallas/cand_matvec)
+                # candidate-native absorb (ops/cand_matvec)
                 cand = ba.candidate_rowblock(cols, start, block, k_basis,
-                                             nbins, tn, use_kernel)
-                b, delta, edges = fd.shrink_rr_cands(
-                    state.sketch, cand, ell, use_kernel=use_kernel)
+                                             nbins)
+                b, delta, edges = fd.shrink_rr_cands(state.sketch, cand, ell)
                 return fd.FDState(
                     sketch=b,
                     sq_frobenius=state.sq_frobenius + edges,

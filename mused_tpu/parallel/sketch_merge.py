@@ -1,4 +1,4 @@
-"""Multi-chip FD sketch merging over ICI.
+"""Multi-chip FD sketch merging over the interconnect.
 
 The mergeability lever (SURVEY.md §2.8): FD(concat(A1, A2)) is approximated
 by FD(stack(B1, B2)) with additive error, so per-chip sketches combine with
@@ -76,7 +76,7 @@ def distributed_fd(rows: jax.Array, *, ell: int, mesh, topology: str = "allgathe
     """Row-sharded FD sketch of (n, d) rows over the mesh "data" axis.
 
     Each chip runs the scanned block-FD over its n/p row shard (perfectly
-    parallel — FD is a mergeable summary), then sketches merge over ICI.
+    parallel — FD is a mergeable summary), then sketches merge over the interconnect.
     Returns the replicated (ell, d) merged sketch.
     """
     def body(shard):

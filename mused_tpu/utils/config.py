@@ -24,7 +24,7 @@ APPROACHES: Tuple[str, ...] = (
     "HDBSCAN_batch",
     "DBSCAN_incr",
     "DBSCAN_centr",
-    # new in the TPU build (not in the reference approach list): spectral
+    # new in this build (not in the reference approach list): spectral
     # clustering on the fused affinity graph (BASELINE.md config #2)
     "sSpectral",
     "Spectral_batch",
@@ -78,7 +78,7 @@ class PipelineConfig:
     min_samples: int = 2
     min_cluster_size: int = 3
 
-    # device-side knobs (new in the TPU build)
+    # device-side knobs (new in this build)
     features: FeatureConfig = dataclasses.field(default_factory=FeatureConfig)
     kmeans_iters: int = 100
     n_clusters_override: int | None = None   # honor an explicit caller value
@@ -88,8 +88,8 @@ class PipelineConfig:
                                         # path regardless of window size
     windows_per_batch: int | None = None
     # W>1: dispatch W tumbling windows per device call via one lax.scan —
-    # numerically identical to per-window dispatch (tested), ~3x e2e on
-    # remote TPU links.  None = auto: 4 on TPU backends when eligible
+    # numerically identical to per-window dispatch (tested).  None = auto:
+    # the platform's W (utils.runtime.platform_paths) when eligible
     # (approach in BATCHABLE_APPROACHES, step_window_ratio==1, dense
     # windows, no checkpoint_dir/verbose), else per-window.  Explicit 1
     # opts out of batching everywhere; explicit W>1 is clamped back to
@@ -98,28 +98,26 @@ class PipelineConfig:
     # engine.resolve_windows_per_batch.
     huge_window_approx_knn: bool = True
     # huge-window (rematerialized blocked) path only: use lax.approx_max_k
-    # for the per-block kNN selections — measured 2x exact top_k at n~100k
-    # cols (the per-block wall) at ~98.5% edge recall, far below the
+    # for the per-block kNN selections — exact top_k over n~100k cols is
+    # the per-block wall, and ~98.5% edge recall is far below the
     # OR-fusion/sketch noise floor.  The dense-window paths stay exact.
     # False restores exact top_k everywhere.
     huge_window_fused_select: bool | None = None
-    # huge-window blocked path: route the MXU modalities (text/tags) through
-    # the fused stride-binned candidate kernel (ops/pallas/blocked_select.py)
-    # — the (block, n) f32 sim strip never round-trips HBM; selection becomes
-    # exact top-k over ~n/32 stride-binned candidates (residue classes, so
-    # contiguous neighbor runs in near-sorted streams never collide).
-    # None = auto: ON on TPU, OFF elsewhere (the XLA emulation is bit-equal
-    # but saves nothing on CPU).  Explicit True/False wins.
+    # huge-window blocked path: stride-binned candidate selection
+    # (ops/binned_select.py) — each modality's kNN becomes exact top-k over
+    # ~n/64 stride-binned candidates (residue classes, so contiguous
+    # neighbor runs in near-sorted streams never collide) instead of
+    # approx_max_k over the full (block, n) strip.  None = the platform's
+    # default (utils.runtime.platform_paths).  Explicit True/False wins.
     huge_window_cand_fold: bool | None = None
     # huge-window SWFDMC (single-chip AND row-sharded): absorb
-    # CANDIDATE-form blocks —
-    # the FD fold's G-applications run straight off the int8 candidate slabs
-    # (ops/pallas/cand_matvec) and the dense (block, n) adjacency block
-    # never reaches HBM.  Same edges as the dense binned path by
+    # CANDIDATE-form blocks — the FD fold's products rebuild the adjacency
+    # one column group at a time from the int8 candidate slabs
+    # (ops/cand_matvec).  Same edges as the dense binned path by
     # construction.  Needs fd_shrink subspace/rr + fused select + every
     # modality binned-eligible (blocked_affinity.cand_fold_supported);
-    # None = auto (ON on TPU when eligible), False = dense fold, True =
-    # force (CPU runs the per-group XLA reference products — test oracle).
+    # None = the platform's default when eligible, False = dense fold,
+    # True = force.
     fd_shrink: str = "subspace"  # "subspace": matmul-only adaptive shrink
                                  # (gated eigh fallback; ~4.5x faster sketch
                                  # streams) | "eigh": guaranteed classic FD.
@@ -128,12 +126,6 @@ class PipelineConfig:
                                  # — exact small-eigh orthonormalization; at
                                  # fold scale the Gram dominates and rr is
                                  # both faster and more accurate)
-    use_pallas_affinity: bool | None = None
-    # fused Pallas kNN kernel for the affinity graphs (all five standard
-    # modalities + numeric/embedding types; threshold ties may add edges).
-    # None = auto: ON when running on TPU (measured 2.1x the XLA
-    # sim+top_k+scatter path at n=2048/d=4096), OFF elsewhere (interpret
-    # mode is emulation, only useful for tests).  Explicit True/False wins.
     sinkhorn_reg: float = 0.1
     sinkhorn_iters: int = 200
     matching: str = "auto"   # cross-window ID matching: "auto" = reference
@@ -188,7 +180,7 @@ class PipelineConfig:
                              # threading).  Kept for cfg-dict
                              # compatibility with saved checkpoints.
     # multi-chip: shard window rows over a ("data","model") mesh of this many
-    # devices; every window step then runs SPMD (sharded affinity, ICI sketch
+    # devices; every window step then runs SPMD (sharded affinity, sketch
     # merge / distributed SVD, psum'd KMeans — parallel/sharded.py).
     # 1 = single-chip. window_size must be divisible by data_shards.
     data_shards: int = 1

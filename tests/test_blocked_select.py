@@ -1,12 +1,12 @@
-"""Stride-binned candidate selection kernel (ops/pallas/blocked_select):
-interpret-mode kernel vs the XLA reference emulation must be bit-identical,
-and candidates->top-k must reproduce exact kNN when nbins == n."""
+"""Stride-binned candidate selection (ops/binned_select): candidates must
+match a residue-bin NumPy oracle, and candidates->top-k must reproduce exact
+kNN when nbins == n."""
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from mused_tpu.ops.pallas import blocked_select as bs
+from mused_tpu.ops import binned_select as bs
 from mused_tpu.ops import affinity
 
 
@@ -22,11 +22,25 @@ def _strip_sim(x, start, block, metric, sums=None):
     raise ValueError(metric)
 
 
+def _oracle_candidates(sim, valid, start, nbins):
+    """NumPy residue-bin oracle: column c lives in slot c % nbins of group
+    c // nbins; invalid and self columns rank at NEG; the lowest group wins
+    ties."""
+    sim = np.array(sim, np.float64)
+    block, n = sim.shape
+    cols = np.arange(n)
+    for r in range(block):
+        sim[r, ~valid] = bs.NEG
+        sim[r, cols == start + r] = bs.NEG
+    s = sim.reshape(block, n // nbins, nbins)
+    return s.max(axis=1), s.argmax(axis=1)
+
+
 @pytest.mark.parametrize("metric", ["dot", "jaccard"])
 @pytest.mark.parametrize("nbins", [128, 256, 512])
-def test_kernel_matches_reference(metric, nbins):
+def test_binned_candidates_match_numpy_oracle(metric, nbins):
     rng = np.random.default_rng(0)
-    n, block, start, tn, k = 512, 128, 256, 128, 7
+    n, block, start = 512, 128, 256
     if metric == "jaccard":
         x = (rng.random((n, 256)) < 0.05).astype(np.float32)
         sums = x.sum(axis=1)
@@ -35,24 +49,40 @@ def test_kernel_matches_reference(metric, nbins):
         x /= np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
         sums = None
     valid = rng.random(n) > 0.1
-    xin = jnp.asarray(x)
-    row_sums = None if sums is None else jnp.asarray(sums)
+    sim = np.asarray(_strip_sim(jnp.asarray(x), start, block, metric, sums))
+    vals, grp = bs.binned_candidates_reference(
+        jnp.asarray(sim), jnp.asarray(valid), start, nbins)
+    want_v, want_g = _oracle_candidates(sim, valid, start, nbins)
+    np.testing.assert_allclose(np.asarray(vals), want_v, rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(grp), want_g)
 
-    vals_k, grp_k = bs.binned_candidates_pallas(
-        xin, xin[start:start + block], jnp.asarray(valid),
-        jnp.int32(start), metric=metric, nbins=nbins, block=block,
-        row_sums=row_sums, tn=tn, interpret=True)
 
-    sim = _strip_sim(xin, start, block, metric, sums)
-    vals_r, grp_r = bs.binned_candidates_reference(
-        sim, jnp.asarray(valid), start, nbins)
-
-    np.testing.assert_allclose(np.asarray(vals_k), np.asarray(vals_r),
-                               rtol=1e-5, atol=1e-5)
-    # where values are materially distinct, the winning column must agree
-    # exactly; true ties may legitimately pick different groups only if
-    # the kernel's strict-> and argmax disagree — they must not:
-    np.testing.assert_array_equal(np.asarray(grp_k), np.asarray(grp_r))
+@pytest.mark.parametrize("kind", ["location_xyz", "time"])
+def test_binned_loc_time_match_numpy_oracle(kind):
+    """The chord3 (location) and l1 (time) binned routes of
+    blocked_affinity: candidates from the strip their sim_fn builds must
+    equal the residue-bin oracle on NumPy's own distances."""
+    from mused_tpu.ops import blocked_affinity as ba
+    rng = np.random.default_rng(1)
+    n, block, start, nbins, k = 512, 128, 128, 128, 4
+    if kind == "location_xyz":
+        x = rng.standard_normal((n, 3)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        d = ((x[start:start + block, None, :].astype(np.float64)
+              - x[None, :, :]) ** 2).sum(-1)
+    else:
+        x = rng.uniform(1.0, 1e5, size=(n, 2)).astype(np.float32)
+        d = np.abs(x[start:start + block, None, :].astype(np.float64)
+                   - x[None, :, :]).sum(-1)
+    valid = rng.random(n) > 0.1
+    spec = ba._kind_cand_spec(kind, jnp.asarray(x), jnp.asarray(valid), k,
+                              jnp.int32(start), block, n)
+    vals, grp = bs.binned_candidates_reference(
+        spec["sim_fn"](), jnp.asarray(valid), start, nbins)
+    want_v, want_g = _oracle_candidates(-d, valid, start, nbins)
+    np.testing.assert_allclose(np.asarray(vals), want_v, rtol=1e-4,
+                               atol=1e-6)
+    np.testing.assert_array_equal(np.asarray(grp), want_g)
 
 
 def test_exact_when_nbins_equals_n():
@@ -80,14 +110,13 @@ def test_exact_when_nbins_equals_n():
 def test_ties_prefer_lowest_group():
     """Duplicate columns (exact sim ties across groups) must keep the
     lowest column index, matching lax.top_k order."""
-    n, block, nbins, tn = 256, 64, 128, 128
+    n, block, nbins = 256, 64, 128
     x = np.zeros((n, 128), np.float32)
     x[:, 0] = 1.0                      # every pair ties at sim 1.0
-    vals_k, grp_k = bs.binned_candidates_pallas(
-        jnp.asarray(x), jnp.asarray(x[:block]), jnp.ones(n, bool),
-        jnp.int32(0), metric="dot", nbins=nbins, block=block, tn=tn,
-        interpret=True)
-    grp = np.asarray(grp_k)
+    sim = jnp.asarray(x[:block] @ x.T)
+    _, grp = bs.binned_candidates_reference(sim, jnp.ones(n, bool),
+                                            jnp.int32(0), nbins)
+    grp = np.asarray(grp)
     # slot s of row r: candidates are cols {s, s+128}; the self col is
     # excluded, otherwise the LOWER index (group 0) must win the tie
     for r in (0, 5, 63):
@@ -240,95 +269,24 @@ def test_default_nbins():
     assert bs.default_nbins(1000) == 0          # not tn-divisible
 
 
-def test_pair_kernel_matches_singles():
-    """The paired loc+time kernel (binned_candidates_pair_pallas) must
-    reproduce the two single-metric kernels' outputs EXACTLY — same sims,
-    same masks, same accumulator updates, just one grid (round-4 perf:
-    9.07 -> 6.51 ms/block at the BASELINE #3 shape)."""
-    rng = np.random.default_rng(1)
-    n, block, start, tn, nbins = 512, 128, 128, 128, 128
-    xyz = rng.standard_normal((n, 3)).astype(np.float32)
-    xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
-    tim = rng.uniform(1.0, 1e5, size=(n, 2)).astype(np.float32)
-    vL = rng.random(n) > 0.1
-    vT = rng.random(n) > 0.2
-    xyzp = jnp.asarray(np.pad(xyz, ((0, 0), (0, 125))))
-    timp = jnp.asarray(np.pad(tim, ((0, 0), (0, 126))))
-
-    vaL, grL, vaT, grT = bs.binned_candidates_pair_pallas(
-        xyzp, timp, xyzp[start:start + block], timp[start:start + block],
-        jnp.asarray(vL), jnp.asarray(vT), jnp.int32(start),
-        metricA="chord3", metricB="l1", nbins=nbins, block=block, tn=tn,
-        interpret=True)
-
-    sL = bs.binned_candidates_pallas(
-        xyzp, xyzp[start:start + block], jnp.asarray(vL), jnp.int32(start),
-        metric="chord3", nbins=nbins, block=block, tn=tn, interpret=True)
-    sT = bs.binned_candidates_pallas(
-        timp, timp[start:start + block], jnp.asarray(vT), jnp.int32(start),
-        metric="l1", nbins=nbins, block=block, tn=tn, interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(vaL), np.asarray(sL[0]))
-    np.testing.assert_array_equal(np.asarray(grL), np.asarray(sL[1]))
-    np.testing.assert_array_equal(np.asarray(vaT), np.asarray(sT[0]))
-    np.testing.assert_array_equal(np.asarray(grT), np.asarray(sT[1]))
-
-
 def test_jaccard_int8_bitexact_vs_f32():
-    """int8 tag counts through the kernel produce BIT-IDENTICAL candidate
-    values to the f32 path: the intersection is the same integer (int8
-    exact up to the token cap), the union arithmetic is f32 both ways."""
+    """int8 tag counts through the binned jaccard route produce
+    BIT-IDENTICAL candidates to f32 counts: the intersection is the same
+    integer (int8 exact up to the token cap), the union arithmetic is f32
+    both ways."""
+    from mused_tpu.ops import blocked_affinity as ba
     rng = np.random.default_rng(2)
-    n, block, start, tn, nbins = 512, 128, 0, 128, 128
+    n, block, start, nbins, k = 512, 128, 0, 128, 5
     x = rng.poisson(0.08, size=(n, 256)).astype(np.float32)
     sums = jnp.asarray(x.sum(axis=1))
     valid = jnp.asarray(rng.random(n) > 0.1)
-    kw = dict(metric="jaccard", nbins=nbins, block=block, row_sums=sums,
-              tn=tn, interpret=True)
-    v8, g8 = bs.binned_candidates_pallas(
-        jnp.asarray(x).astype(jnp.int8),
-        jnp.asarray(x[start:start + block]).astype(jnp.int8),
-        valid, jnp.int32(start), **kw)
-    vf, gf = bs.binned_candidates_pallas(
-        jnp.asarray(x), jnp.asarray(x[start:start + block]),
-        valid, jnp.int32(start), **kw)
-    np.testing.assert_array_equal(np.asarray(v8), np.asarray(vf))
+    out = []
+    for t in (jnp.asarray(x).astype(jnp.int8), jnp.asarray(x)):
+        spec = ba._kind_cand_spec("tags", t, valid, k, jnp.int32(start),
+                                  block, n, sums)
+        out.append(ba._modality_candidates(
+            valid=valid, vr=valid[start:start + block], start=start,
+            block=block, n=n, nbins=nbins, **spec))
+    (k8, g8), (kf, gf) = out
+    np.testing.assert_array_equal(np.asarray(k8), np.asarray(kf))
     np.testing.assert_array_equal(np.asarray(g8), np.asarray(gf))
-
-
-def test_pair_kernel_stat_metrics_match_singles():
-    """The generalized pair kernel accepts STAT metrics (jaccard via
-    hoisted sums) next to stat-free ones: tags jaccard (int8) + text dot
-    (bf16) in one sweep must bit-equal the two single-metric kernels.
-    (Measured at the BASELINE #3 shape the pairing saves only ~0.8
-    ms/block — the MXU dots dominate and only the epilogue is shared — so
-    production keeps separate sweeps; the capability is tested here.)"""
-    rng = np.random.default_rng(2)
-    n, block, start, tn, nbins = 512, 128, 256, 128, 128
-    tags = (rng.random((n, 256)) < 0.05).astype(np.int8)
-    text = rng.standard_normal((n, 256)).astype(np.float32)
-    text /= np.maximum(np.linalg.norm(text, axis=1, keepdims=True), 1e-9)
-    tags_j = jnp.asarray(tags)
-    text_j = jnp.asarray(text, jnp.bfloat16)
-    sums = jnp.sum(tags_j.astype(jnp.float32), axis=1)
-    vA = jnp.asarray(rng.random(n) > 0.1)
-    vB = jnp.asarray(rng.random(n) > 0.2)
-
-    va, ga, vb, gb = bs.binned_candidates_pair_pallas(
-        tags_j, text_j, tags_j[start:start + block],
-        text_j[start:start + block], vA, vB, jnp.int32(start),
-        metricA="jaccard", metricB="dot", nbins=nbins, block=block,
-        row_sumsA=sums, tn=tn, interpret=True)
-
-    sA = bs.binned_candidates_pallas(
-        tags_j, tags_j[start:start + block], vA, jnp.int32(start),
-        metric="jaccard", nbins=nbins, block=block, row_sums=sums, tn=tn,
-        interpret=True)
-    sB = bs.binned_candidates_pallas(
-        text_j, text_j[start:start + block], vB, jnp.int32(start),
-        metric="dot", nbins=nbins, block=block, tn=tn, interpret=True)
-
-    np.testing.assert_array_equal(np.asarray(va), np.asarray(sA[0]))
-    np.testing.assert_array_equal(np.asarray(ga), np.asarray(sA[1]))
-    np.testing.assert_array_equal(np.asarray(vb), np.asarray(sB[0]))
-    np.testing.assert_array_equal(np.asarray(gb), np.asarray(sB[1]))

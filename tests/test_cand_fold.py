@@ -1,11 +1,11 @@
-"""Candidate-native huge-window FD fold (ops/pallas/cand_matvec +
+"""Candidate-native huge-window FD fold (ops/cand_matvec +
 blocked_affinity.candidate_rowblock + fd.shrink_rr_cands).
 
-The fold's G-applications run straight off int8 candidate slabs; the dense
-(block, n) fused adjacency block never materializes.  Edges must equal the
-dense binned path EXACTLY (same candidate kernels + budgeted_keep + username
-equality); products agree to f32 rounding; the FD bound stays a true upper
-bound on the sketch's covariance error.
+The fold's products rebuild the adjacency one column group at a time from
+int8 candidate slabs.  Edges must equal the dense binned path EXACTLY (same
+candidates + budgeted_keep + username equality); products agree to f32
+rounding; the FD bound stays a true upper bound on the sketch's covariance
+error.
 """
 import numpy as np
 import jax
@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import pytest
 
 from mused_tpu.ops import blocked_affinity as ba, fd
-from mused_tpu.ops.pallas import blocked_select as bs, cand_matvec as cm
+from mused_tpu.ops import cand_matvec as cm
 
 
 def _standard_cols(n=256, seed=0, noise=0.5):
@@ -46,34 +46,35 @@ def _random_cand(rng, n_mod=3, block=64, nbins=128, groups=4,
     return cm.CandBlock(slabs, uid_r, uid_c, jnp.int32(64))
 
 
+def _dense_oracle(cand) -> np.ndarray:
+    """NumPy (block, n) 0/1 fused rows of a CandBlock: column g*nbins + s
+    is an edge when any slab keeps group g in slot s, or (username) when the
+    row's and column's uids match and it is not the row's own column."""
+    slabs = np.asarray(cand.slabs)
+    _, block, nbins = slabs.shape
+    groups = np.asarray(cand.uid_cols).shape[0]
+    dense = np.zeros((block, groups * nbins), np.float32)
+    for g in range(groups):
+        dense[:, g * nbins:(g + 1) * nbins] = (slabs == g).any(axis=0)
+    if cand.uid_rows is not None:
+        ur = np.asarray(cand.uid_rows)[:, 0]
+        uc = np.asarray(cand.uid_cols).reshape(-1)
+        same = ur[:, None] == uc[None, :]
+        rows = int(cand.start) + np.arange(block)
+        same &= rows[:, None] != np.arange(groups * nbins)[None, :]
+        dense = np.maximum(dense, same.astype(np.float32))
+    return dense
+
+
 @pytest.mark.parametrize("with_user", [True, False])
-def test_kernel_interpret_matches_reference(with_user):
-    """Interpret-mode kernels vs the per-group XLA reference: EXACT on
-    integer operands (0/1 masks x small-int vectors sum exactly in f32
-    regardless of accumulation order)."""
-    rng = np.random.default_rng(0)
-    cand = _random_cand(rng, with_user=with_user)
-    n = cand.uid_cols.shape[0] * cand.nbins
-    x_t = jnp.asarray(rng.integers(-4, 5, (128, 64)).astype(np.float32)
-                      ).astype(jnp.bfloat16)
-    out_k, e_k = cm.matvec_t_pallas(cand, x_t, interpret=True)
-    out_r, e_r = cm.matvec_t_reference(cand, x_t)
-    np.testing.assert_array_equal(np.asarray(out_k), np.asarray(out_r))
-    assert float(e_k) == float(e_r)
-
-    y = jnp.asarray(rng.integers(-4, 5, (n, 128)).astype(np.float32)
-                    ).astype(jnp.bfloat16)
-    a_k = cm.matvec_pallas(cand, y, interpret=True)
-    a_r = cm.matvec_reference(cand, y)
-    np.testing.assert_array_equal(np.asarray(a_k), np.asarray(a_r))
-
-
-def test_reference_products_match_dense():
-    """The per-group reference products equal plain dense matmuls of the
-    union adjacency (integer operands -> exact)."""
+def test_reference_products_match_dense(with_user):
+    """The per-group products equal plain dense matmuls of the NumPy union
+    adjacency (integer operands -> exact), with and without the username
+    modality."""
     rng = np.random.default_rng(1)
-    cand = _random_cand(rng)
-    dense = np.asarray(cm.dense_rows_reference(cand)).astype(np.float32)
+    cand = _random_cand(rng, with_user=with_user)
+    dense = _dense_oracle(cand)
+    np.testing.assert_array_equal(np.asarray(cm.dense_rows(cand)), dense > 0)
     n = dense.shape[1]
     # username equality must never add a self edge: row i's global column
     # is 64+i (group 0, slot 64+i), so unless some slab itself keeps that
@@ -83,31 +84,47 @@ def test_reference_products_match_dense():
         if not (slabs[:, i, 64 + i] == 0).any():
             assert dense[i, 64 + i] == 0.0
     x = rng.integers(-4, 5, (128, 64)).astype(np.float32)
-    out, edges = cm.matvec_t_reference(cand, jnp.asarray(x)
-                                       .astype(jnp.bfloat16))
+    out, edges = cm.matvec_t(cand, jnp.asarray(x).astype(jnp.bfloat16))
     np.testing.assert_array_equal(np.asarray(out), x @ dense)
     assert float(edges) == dense.sum()
     y = rng.integers(-4, 5, (n, 128)).astype(np.float32)
-    got = cm.matvec_reference(cand, jnp.asarray(y).astype(jnp.bfloat16))
+    got = cm.matvec(cand, jnp.asarray(y).astype(jnp.bfloat16))
     np.testing.assert_array_equal(np.asarray(got), dense @ y)
+
+
+@pytest.mark.parametrize("with_user", [True, False])
+def test_products_match_dense_float_operands(with_user):
+    """Real-valued probes (the fold's bf16 operands): the per-group
+    products equal the dense product of the bf16-rounded operand to f32
+    summation rounding."""
+    rng = np.random.default_rng(2)
+    cand = _random_cand(rng, with_user=with_user)
+    dense = _dense_oracle(cand)
+    x = jnp.asarray(rng.standard_normal((80, 64)), jnp.bfloat16)
+    y = jnp.asarray(rng.standard_normal((dense.shape[1], 80)), jnp.bfloat16)
+    out, _ = cm.matvec_t(cand, x)
+    np.testing.assert_allclose(np.asarray(out),
+                               np.asarray(x, np.float64) @ dense,
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(cm.matvec(cand, y)),
+                               dense @ np.asarray(y, np.float64),
+                               rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.slow
 def test_candidate_rowblock_matches_fused_rowblock():
     """Candidate blocks expand to EXACTLY the dense binned fused block
-    (same kernels, same budgeted_keep, username equality included)."""
+    (same candidates, same budgeted_keep, username equality included)."""
     cols = _standard_cols()
     n = cols.n
     nbins = n // 2
-    tn = bs.pick_tn(n, nbins)
     assert ba.cand_fold_supported(cols.kinds, cols.tensors, nbins, n)
     for start in (0, 64, 192):
-        cand = ba.candidate_rowblock(cols, jnp.int32(start), 64, 5,
-                                     nbins, tn, False)
+        cand = ba.candidate_rowblock(cols, jnp.int32(start), 64, 5, nbins)
         dense = ba.fused_rowblock(cols, jnp.int32(start), 64, 5,
                                   select="binned", nbins=nbins)
         np.testing.assert_array_equal(
-            np.asarray(cm.dense_rows_reference(cand)),
+            np.asarray(cm.dense_rows(cand)),
             np.asarray(dense) > 0)
 
 
@@ -151,8 +168,8 @@ def test_cand_fold_bound_oracle():
 
 
 def test_cand_fold_gating():
-    """Eligibility: forced True with a strip-only kind raises; auto stays
-    off (dense fold) on CPU."""
+    """Eligibility: forced True with a strip-only kind raises, and so does
+    the eigh shrink."""
     cols = _standard_cols()
     n = cols.n
     # text_split has no candidate route
@@ -216,7 +233,7 @@ def test_engine_huge_window_cand_fold_metric_parity():
     sat at NMI ~= 0 where the fold's numerics were invisible).
 
     Measured on this fixture: NMI 0.515, NMI_e 0.857, identical ON vs OFF
-    to 4 decimals (experiments/exp_oracle_fixture.py probe)."""
+    to 4 decimals."""
     from mused_tpu import api
     from mused_tpu.utils.config import PipelineConfig
     from mused_tpu.data.synthetic import synthetic_events_dataframe
@@ -256,8 +273,8 @@ def test_engine_huge_window_cand_fold_metric_parity():
 @pytest.mark.slow
 def test_sharded_cand_fold_matches_single_chip():
     """Row-sharded SPMD sweep with the candidate-native fold: per-shard
-    absorbs run off the slabs (forced True -> XLA reference products on the
-    CPU mesh) and the ICI-merged sketch selects EXACTLY the same edges as
+    absorbs run off the slabs and the merged sketch selects EXACTLY the
+    same edges as
     the single-chip cand fold, within the FD merge bound."""
     from mused_tpu.parallel import mesh as mesh_mod, sharded
     cols = _standard_cols()
@@ -299,8 +316,7 @@ def test_cand_fold_empty_block_skip():
         jnp.int32(0))
     sketch = jnp.asarray(rng.normal(size=(16, groups * nbins))
                          .astype(np.float32))
-    b, delta, edges = fd.shrink_rr_cands(sketch, empty, 16,
-                                         use_kernel=False)
+    b, delta, edges = fd.shrink_rr_cands(sketch, empty, 16)
     np.testing.assert_array_equal(np.asarray(b), np.asarray(sketch))
     assert float(delta) == 0.0 and float(edges) == 0.0
 
@@ -309,6 +325,6 @@ def test_cand_fold_empty_block_skip():
     sketch2 = jnp.asarray(rng.normal(size=(16, cand.uid_cols.shape[0]
                                            * cand.nbins))
                           .astype(np.float32))
-    b2, _, edges2 = fd.shrink_rr_cands(sketch2, cand, 16, use_kernel=False)
+    b2, _, edges2 = fd.shrink_rr_cands(sketch2, cand, 16)
     assert float(edges2) > 0.0
     assert not np.array_equal(np.asarray(b2), np.asarray(sketch2))

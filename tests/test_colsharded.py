@@ -1,6 +1,6 @@
 """Column-sharded huge-window sweep (parallel/colsharded): the capacity
 layout — feature tensors sharded over the mesh, per-chip binned candidates
-merged over ICI, column-sharded FD fold with psum'd contractions.
+merged over the interconnect, column-sharded FD fold with psum'd contractions.
 
 Oracles: the single-chip binned path (ops/blocked_affinity.fused_rowblock
 select="binned") for adjacency bit-exactness, the single-chip blocked FD
@@ -163,7 +163,7 @@ def test_grid_fd_matches_singlechip(rng, mode):
     bound = min(float(loss), float(sq) / ell)
     assert err <= bound * 1.01 + 1e-3
     # comparable quality to the sequential single-chip fold (the merge adds
-    # one bounded shrink — same argument as the row-sharded ICI merge)
+    # one bounded shrink — same argument as the row-sharded sketch merge)
     assert err <= 2.0 * max(err1, 1e-6) + 0.1 * float(sq) / ell
 
 
@@ -529,58 +529,10 @@ def test_colsharded_cand_fold_generic_no_user(rng, mesh4):
     np.testing.assert_allclose(g_c, g_d, atol=5e-2 * scale)
 
 
-@pytest.mark.slow
-def test_raw_candidates_pair_plumbing_matches_emulation():
-    """The colsharded selection loop's kernel branch pairs consecutive
-    modalities into one binned_candidates_pair_pallas launch (round 5).
-    The pairing/bookkeeping must reproduce the emulation branch exactly —
-    tested off-mesh in interpret mode with an ODD modality count so both
-    the pair and the leftover-single legs run."""
-    from mused_tpu.parallel.colsharded import _raw_candidates
-
-    rng = np.random.default_rng(7)
-    n, block, start, tn, nbins = 512, 128, 128, 128, 128
-    xyz = rng.standard_normal((n, 3)).astype(np.float32)
-    xyz /= np.linalg.norm(xyz, axis=1, keepdims=True)
-    tim = rng.uniform(1.0, 1e5, size=(n, 2)).astype(np.float32)
-    tags = (rng.random((n, 256)) < 0.05).astype(np.int8)
-    vL = jnp.asarray(rng.random(n) > 0.1)
-    vT = jnp.asarray(rng.random(n) > 0.2)
-    vG = jnp.asarray(tags.sum(1) > 0)
-    xyzp = jnp.asarray(np.pad(xyz, ((0, 0), (0, 125))))
-    timp = jnp.asarray(np.pad(tim, ((0, 0), (0, 126))))
-    tagsj = jnp.asarray(tags)
-    tag_sums = jnp.asarray(tags.sum(1).astype(np.float32))
-    sl = slice(start, start + block)
-
-    def build():
-        return [
-            ("chord3", xyzp, vL, None, 5, vL[sl], xyzp[sl], None),
-            ("l1", timp, vT, None, 15, vT[sl], timp[sl], None),
-            ("jaccard", tagsj, vG, tag_sums, 5, vG[sl], tagsj[sl],
-             tag_sums[sl]),
-        ]
-
-    kern = _raw_candidates(build(), jnp.int32(start), nbins=nbins,
-                           block=block, tn=tn, use_kernel=True,
-                           interpret=True)
-    emul = _raw_candidates(build(), jnp.int32(start), nbins=nbins,
-                           block=block, tn=tn, use_kernel=False)
-    assert len(kern) == len(emul) == 3
-    for (vk, gk), (ve, ge) in zip(kern, emul):
-        # group ids exact; values to float rounding (the interpret-mode
-        # kernel orders the chord3 arithmetic differently than the strip
-        # — max observed diff 5e-7, same property as the single kernel)
-        np.testing.assert_allclose(np.asarray(vk), np.asarray(ve),
-                                   rtol=0, atol=1e-5)
-        np.testing.assert_array_equal(np.asarray(gk), np.asarray(ge))
-
-
 def test_default_nbins_capacity_scale_fits_budgets():
     """The resolver must produce a compilable geometry at the ~1M-row
-    capacity windows the columns layout exists for (review r5: the old
-    global g<=127 cap forced nbins=16k there — a (2048, 16384) VMEM
-    accumulator past the v5e's physical 128 MB)."""
+    capacity windows the columns layout exists for: per-chip int8 group
+    ids and (block, nbins) candidate buffers of at most 4096 bins."""
     from mused_tpu.parallel.colsharded import default_nbins_colsharded
     for n, p in ((1_048_576, 8), (524_288, 4), (98_304, 8)):
         nbins = default_nbins_colsharded(n, p)
@@ -588,6 +540,6 @@ def test_default_nbins_capacity_scale_fits_budgets():
         g = n // nbins
         assert g % p == 0 and n % g == 0
         assert g // p <= 127, (n, p, g)              # per-chip int8 ids
-        assert nbins <= 4096, (n, p, nbins)          # VMEM accumulator
+        assert nbins <= 4096, (n, p, nbins)          # candidate buffers
     # small-n behavior unchanged (the existing parity fixtures)
     assert default_nbins_colsharded(512, 8) == 8

@@ -97,7 +97,7 @@ def test_fd_incremental_equals_bulk(rng):
 
 class TestSubspaceShrink:
     """Matmul-only adaptive shrink (fd.shrink_fast / mode="subspace"):
-    5-6x faster streams on TPU (eigh solver latency is the FD ceiling),
+    matmuls only, no per-shrink eigh solver latency,
     rank-ell truncation semantics with an exact-eigh fallback on degenerate
     stacks.  Documented weakness: tie-degenerate (duplicate-heavy) spectra."""
 
@@ -301,9 +301,8 @@ class TestRRStability:
     The original eigh-whiten Q = V (V^T V)^{-1/2} has condition ~kappa(G)^2
     and broke Q^T Q <= I once the sketch's spectral spread passed f32's
     floor — on the real 100k-window fold the sketch energy compounded
-    exponentially after ~16 absorbs while the trace-residual loss froze at 0
-    (experiments/exp_fold_diverge.py, v5e).  Householder QR fixed it at
-    identical wall time (experiments/exp_fold_fix.py).  This distills the
+    exponentially after ~16 absorbs while the trace-residual loss froze at 0.
+    Householder QR fixed it.  This distills the
     mechanism to CPU scale: a steep-spectrum stream (singular values
     spanning ~1e7) absorbed in 48 sequential shrink_rr_pair steps — the
     whiten violates the per-absorb bound ||B'||_F^2 <= ||S||_F^2 at ~3e-4

@@ -226,7 +226,7 @@ def test_engine_sharded_metrics_match_single_chip(engine_stream, approach):
                                                ("DBSCAN_incr", "allgather")])
 @pytest.mark.slow
 def test_engine_sharded_all_approaches_run(engine_stream, approach, topology):
-    """Sketch/stateful approaches: per-shard FD + ICI merge is a different
+    """Sketch/stateful approaches: per-shard FD + sketch merge is a different
     (equally valid) FD sketch structure than single-chip, so parity is at the
     metric level: the sharded stream must cluster no worse than the
     all-noise baseline and produce finite metrics."""
@@ -282,7 +282,7 @@ def test_engine_sharded_rejects_bad_config(engine_stream):
 @pytest.mark.parametrize("topology", ["allgather", "ring"])
 @pytest.mark.slow
 def test_sharded_blocked_fd_sketch_quality(rng, mesh8, topology):
-    """Row-sharded blocked FD sweep + ICI merge: the merged sketch covers the
+    """Row-sharded blocked FD sweep + sketch merge: the merged sketch covers the
     implicit fused adjacency within the FD merge bound, and matches the
     single-chip blocked sketch's quality."""
     from mused_tpu.ops import blocked_affinity as ba

@@ -296,61 +296,63 @@ def test_k_estimate_validation(modalities):
 
 
 def test_windows_per_batch_auto_resolution():
-    """windows_per_batch=None resolves to scanned-4 only on TPU backends for
-    eligible configs (VERDICT r2 next #4); known-long streams (n_windows
-    passed) widen auto to 8 when the padded tail costs no extra window-steps
-    (ADVICE r3 #2); explicit values always win."""
+    """windows_per_batch=None resolves to the platform's W
+    (utils.runtime.platform_paths: 8 on the GPU, 1 on the CPU) for
+    eligible configs; a stream of known length (n_windows passed) halves
+    auto W while a quarter or more of its padded steps would be padding;
+    explicit values always win."""
     from mused_tpu.engine.streaming import resolve_windows_per_batch
     from mused_tpu.utils.config import PipelineConfig
+    from mused_tpu.utils.runtime import platform_paths
     base = PipelineConfig(approach="SWFDMC", window_size=64)
     kw = dict(standard_types=False)
-    assert resolve_windows_per_batch(base, backend="tpu", **kw) == 4
+    w_gpu = platform_paths("gpu").windows_per_batch
+    assert w_gpu == 8
+    assert resolve_windows_per_batch(base, backend="gpu", **kw) == w_gpu
     assert resolve_windows_per_batch(base, backend="cpu", **kw) == 1
-    # a known-long stream widens auto to 8 (offline loop passes n_windows;
-    # serving doesn't and stays at 4 — its label lag is W-1+max_lag)
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=8,
-                                     **kw) == 8
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=7,
-                                     **kw) == 4
-    # tail-aware widening: 9 windows would pad to 16 steps at W=8 vs 12 at
-    # W=4 — stay at 4; 16 windows pad-free at both — widen (fewer dispatches)
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=9,
-                                     **kw) == 4
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=12,
-                                     **kw) == 4
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=13,
-                                     **kw) == 8
-    assert resolve_windows_per_batch(base, backend="tpu", n_windows=16,
-                                     **kw) == 8
+    # the offline loop passes n_windows (serving doesn't and keeps W):
+    # padded tail = 75 -> 80 keeps 8, 7 -> 8 keeps 8, 12 -> 16 halves to 4,
+    # 9 -> 16 -> 12 -> 10 stops at 2, 3 windows run per-window
+    for n_windows, want in ((75, 8), (8, 8), (7, 8), (16, 8), (12, 4),
+                            (9, 2), (3, 1), (1, 1)):
+        assert resolve_windows_per_batch(base, backend="gpu",
+                                         n_windows=n_windows,
+                                         **kw) == want, n_windows
     assert resolve_windows_per_batch(base, backend="cpu", n_windows=64,
                                      **kw) == 1
-    # n_windows never widens an EXPLICIT W
+    # n_windows never changes an EXPLICIT W
     assert resolve_windows_per_batch(
-        base.replace(windows_per_batch=4), backend="tpu", n_windows=64,
+        base.replace(windows_per_batch=4), backend="gpu", n_windows=64,
         **kw) == 4
+    assert resolve_windows_per_batch(
+        base.replace(windows_per_batch=8), backend="gpu", n_windows=9,
+        **kw) == 8
     # explicit opt-out / explicit W win on any backend
     assert resolve_windows_per_batch(
-        base.replace(windows_per_batch=1), backend="tpu", **kw) == 1
+        base.replace(windows_per_batch=1), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
         base.replace(windows_per_batch=8), backend="cpu", **kw) == 8
     # ineligibility gates: host-clustered approach, sliding ratio,
     # checkpointing, verbose, huge windows, centroid-on-standard
     assert resolve_windows_per_batch(
-        base.replace(approach="DBSCAN_incr"), backend="tpu", **kw) == 1
+        base.replace(approach="DBSCAN_incr"), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(step_window_ratio=2), backend="tpu", **kw) == 1
+        base.replace(step_window_ratio=2), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base, backend="tpu", checkpoint_dir="/tmp/x", **kw) == 1
+        base, backend="gpu", checkpoint_dir="/tmp/x", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(verbose=True), backend="tpu", **kw) == 1
+        base.replace(verbose=True), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(force_blocked_window=True), backend="tpu", **kw) == 1
+        base.replace(force_blocked_window=True), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(matching="centroid"), backend="tpu",
+        base.replace(matching="centroid"), backend="gpu",
         standard_types=True) == 1
     # the engine-arg ratio overrides the cfg field when provided
-    assert resolve_windows_per_batch(base, backend="tpu",
+    assert resolve_windows_per_batch(base, backend="gpu",
                                      step_window_ratio=2, **kw) == 1
+    # a platform without an entry is an error, not a silent default
+    with pytest.raises(ValueError):
+        resolve_windows_per_batch(base, backend="rocm", **kw)
 
 
 def test_windows_per_batch_explicit_clamped_when_ineligible():
@@ -365,13 +367,13 @@ def test_windows_per_batch_explicit_clamped_when_ineligible():
     kw = dict(standard_types=False)
     assert resolve_windows_per_batch(base, backend="cpu", **kw) == 4
     assert resolve_windows_per_batch(
-        base.replace(approach="DBSCAN_incr"), backend="tpu", **kw) == 1
+        base.replace(approach="DBSCAN_incr"), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(approach="DBSCAN_centr"), backend="tpu", **kw) == 1
+        base.replace(approach="DBSCAN_centr"), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(step_window_ratio=2), backend="tpu", **kw) == 1
+        base.replace(step_window_ratio=2), backend="gpu", **kw) == 1
     assert resolve_windows_per_batch(
-        base.replace(force_blocked_window=True), backend="tpu", **kw) == 1
+        base.replace(force_blocked_window=True), backend="gpu", **kw) == 1
     # soft conditions (checkpointing) still compose with EXPLICIT W>1
     assert resolve_windows_per_batch(base, backend="cpu",
                                      checkpoint_dir="/tmp/x", **kw) == 4
